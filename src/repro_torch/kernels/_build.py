@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds), under ``build/repro_torch/`` at the root of the checkout.  The
-library's file name carries a hash of its sources, so an edited kernel is
-rebuilt and a stale one is never loaded.  :func:`build` compiles several
+library's file name carries a hash of its source, of every header in
+``csrc/`` and of the compiler flags, so an edited kernel or header is rebuilt
+and a stale library is never loaded.  :func:`build` compiles several
 kernels in parallel, one ``nvcc`` process each.
 
 Nothing here runs when the module is imported: the CPU tests import every
@@ -52,7 +53,8 @@ def _nvcc() -> str:
 
 def lib_path(name: str) -> Path:
     h = hashlib.sha256()
-    for src in (CSRC / "common.cuh", CSRC / f"{name}.cu"):
+    for src in (*sorted(CSRC.glob("*.cuh")), CSRC / f"{name}.cu"):
+        h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"

@@ -7,8 +7,14 @@ itself (as Pallas scalar-prefetches it), so a decode step never waits on the
 device.  The kernel reads nothing at or past ``kv_len`` and takes the cache
 through its strides, so the model's ``[B, M, Hkv, d]`` cache is passed as a
 transposed view and never copied; it copies cache rows in 16-byte pieces, so
-the cache must be 16-byte aligned (any cache from ``torch.empty`` is).  A CPU tensor gets the plain version of
-``ref.py``; a CUDA tensor launches the kernel or raises.
+the cache must be 16-byte aligned (any cache from ``torch.empty`` is).  The
+kernel splits the cache over blocks (:func:`split_chunk`), each writing an
+fp32 partial to a scratch tensor allocated here; the last block of each
+(sequence, KV head) merges them, so a call is still one launch.  The merge
+counts finished blocks in a set of counters that the kernel leaves at zero;
+each stream gets its own set, so calls on different streams may run at once.
+A CPU tensor gets the plain version of ``ref.py``; a CUDA tensor launches the
+kernel or raises.
 """
 
 from __future__ import annotations
@@ -22,9 +28,27 @@ from . import _build, ref
 HEAD_DIMS = (64, 128, 192)
 MAX_GROUP = 8  # query heads per KV head (csrc kMaxG)
 
+TILE = 64  # keys a tile of the kernel (csrc kTileK); a split is a multiple of it
+
 launches = 0  # kernel launches since the last reset (see ops.reset_launch_counts)
 
 _fn = None
+# The merge's counters, zero between calls: one set per (device, stream).
+_counters: dict[tuple[torch.device, int], torch.Tensor] = {}
+_sms: dict[torch.device, int] = {}
+
+
+def split_chunk(lk: int, b: int, hkv: int, sms: int = 132) -> int:
+    """Keys each block of the kernel takes, from the cache's capacity ``lk``.
+
+    ``kv_len`` lives on the device and is never read back, so the split is
+    chosen from the capacity: the multiple of :data:`TILE` that gives about
+    two blocks for each of the card's ``sms`` SMs (the kernel's shared
+    memory fits two a SM), so one wave of blocks covers the cache.  Returns
+    at least one tile, and one split when a single block covers the cache.
+    """
+    per_block = -(-lk * b * hkv // (2 * sms))
+    return min(max(TILE, -(-per_block // TILE) * TILE), -(-lk // TILE) * TILE)
 
 
 def _kernel():
@@ -36,6 +60,7 @@ def _kernel():
             [P, P, P, P, P, I]  # q, k, v, o, kv_len ptr/val
             + [I] * 5  # B, Hq, Hkv, Lk, d
             + [LL] * 10  # q (b, h), k (b, h, l), v (b, h, l), o (b, h)
+            + [I, P, P]  # chunk, partials, counters
             + [I, P]  # dtype, stream
         )
         fn.restype = ctypes.c_int
@@ -72,6 +97,16 @@ def decode_attention(
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o
+    dev = q.device
+    if dev not in _sms:
+        _sms[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
+    chunk = split_chunk(lk, b, hkv, _sms[dev])
+    splits = -(-lk // chunk)
+    stream = _build.stream_of(q)
+    part = torch.empty(b * hq * splits * (d + 2), dtype=torch.float32, device=dev)
+    counters = _counters.get((dev, stream))
+    if counters is None or counters.numel() < b * hkv:
+        counters = _counters[dev, stream] = torch.zeros(b * hkv, dtype=torch.int32, device=dev)
     with torch.cuda.device(q.device):
         rc = _kernel()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), kv_ptr, kv_val,
@@ -80,7 +115,8 @@ def decode_attention(
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
             o.stride(0), o.stride(1),
-            _build.DTYPE_CODE[q.dtype], _build.stream_of(q),
+            chunk, part.data_ptr(), counters.data_ptr(),
+            _build.DTYPE_CODE[q.dtype], stream,
         )
     _build.check("decode_attention", rc)
     launches += 1

@@ -7,9 +7,11 @@ it takes any ``Lq`` and ``Lk`` (the ragged edge is masked, nothing is
 padded) and tensors of any strides with a unit stride along ``d``: the model
 passes transposed views of its ``[B, L, H, d]`` tensors and the cache is
 never copied.  ``kv_len`` and ``q_offset`` may be device int32 scalars, which
-the kernel reads itself.  Probabilities stay fp32 for ``P·V``, as in the TPU
-kernel.  A CPU tensor gets the plain version of ``ref.py``; a CUDA tensor
-launches the kernel or raises.
+the kernel reads itself.  Probabilities are not rounded to bf16 alone for
+``P·V``: bf16 splits them into two bf16 halves on the tensor cores, fp32 keeps
+them fp32 on the CUDA cores.  bf16 inputs are read by TMA, so their bases and
+strides must be multiples of 16 bytes.  A CPU tensor gets the plain version of
+``ref.py``; a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -77,6 +79,11 @@ def flash_attention(
         raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
     if any(t.stride(-1) != 1 for t in (q, k, v)) or not (k.device == v.device == q.device):
         raise ValueError("q, k, v must lie on one device with unit stride along head_dim")
+    if q.dtype == torch.bfloat16 and any(
+        t.data_ptr() % 16 or any(s * 2 % 16 for s, n in zip(t.stride()[:3], t.shape[:3]) if n > 1)
+        for t in (q, k, v)
+    ):
+        raise ValueError("bf16 q, k, v must be 16-byte aligned, base and (b, h, l) strides")
     kv_ptr, kv_val = _build.scalar_arg(lk if kv_len is None else kv_len, q.device, "kv_len")
     off_ptr, off_val = _build.scalar_arg(q_offset, q.device, "q_offset")
     o = torch.empty_like(q)

@@ -259,3 +259,63 @@ def test_ref_q_offset_zero_is_reference():
     (jq, tq), (jk, tk), (jv, tv) = _qkv(20, 1, 2, 1, 32, 48, 64, "float32")
     got = tref.flash_attention_ref(tq, tk, tv, causal=True, kv_len=40, q_offset=0)
     _close(got, j_flash_ref(jq, jk, jv, causal=True, kv_len=40), 2e-5)
+
+
+@pytest.mark.parametrize(
+    "g,kv_len",
+    [(g, kv) for g in (1, 3, 7) for kv in (0, 1, 63, 64, 65, 256)]
+    + [(3, 100)],  # splits 2 and 3 of 4 hold no live key
+    ids=lambda x: str(x),
+)
+def test_decode_split_merge_rule(g, kv_len):
+    # The decode kernel's split over the cache (chunk 64 keys, 4 splits of a
+    # 256-row cache) and its merge, against the TPU kernel in interpret mode
+    # and the reference, in fp32.
+    chunk, lk, d = 64, 256, 64
+    q = _normal(30 + g, 2, 2 * g, d)
+    k = _normal(31, 2, 2, lk, d)
+    v = _normal(32, 2, 2, lk, d)
+    got = tref.decode_attention_split_ref(*(torch.from_numpy(a) for a in (q, k, v)), kv_len, chunk)
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    _close(got, pallas_decode(jq, jk, jv, kv_len, block_k=chunk, interpret=True), 2e-5)
+    if kv_len == 0:
+        # No live key: the kernels give 0; the reference's plain softmax
+        # would average every row instead.
+        assert not got.any()
+    else:
+        _close(got, j_decode_ref(jq, jk, jv, kv_len), 2e-5)
+
+
+def test_split_chunk_rule():
+    from repro_torch.kernels.decode_attention import TILE, split_chunk
+
+    assert split_chunk(2048, 4, 8) == 256  # 8 splits: 256 blocks, two a SM
+    assert split_chunk(160, 4, 8) == 64  # the serving cache: 3 splits
+    assert split_chunk(64, 4, 8) >= 64  # one split
+    for lk, b, hkv in [(1, 1, 1), (100, 1, 1), (4096, 2, 8), (32768, 1, 8), (160, 16, 8)]:
+        c = split_chunk(lk, b, hkv)
+        splits = -(-lk // c)
+        assert c % TILE == 0 and c >= TILE
+        assert splits == 1 or b * hkv * splits <= 2 * 132 + b * hkv
+
+
+def test_build_hash_covers_headers(tmp_path, monkeypatch):
+    # An edited header must change the library's path, so a stale build is
+    # never loaded; so must the compiler flags.
+    from repro_torch.kernels import _build
+
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for f in _build.CSRC.iterdir():
+        if f.suffix in (".cu", ".cuh"):
+            (csrc / f.name).write_bytes(f.read_bytes())
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    before = {n: _build.lib_path(n) for n in _build.KERNELS}
+    assert before == {n: _build.lib_path(n) for n in _build.KERNELS}
+    (csrc / "sm90.cuh").write_text((csrc / "sm90.cuh").read_text() + "\n// edited\n")
+    after = {n: _build.lib_path(n) for n in _build.KERNELS}
+    assert all(after[n] != before[n] for n in _build.KERNELS)
+    (csrc / "extra.cuh").write_text("#pragma once\n")  # a new header counts too
+    assert all(_build.lib_path(n) != after[n] for n in _build.KERNELS)
+    monkeypatch.setattr(_build, "NVCC_FLAGS", (*_build.NVCC_FLAGS, "-lineinfo"))
+    assert _build.lib_path("rmsnorm") != before["rmsnorm"]
