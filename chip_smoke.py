@@ -8,14 +8,19 @@ Run from the root of a checkout, with no arguments::
 Phases, each of which exits nonzero on failure:
 
 1. Environment: torch and CUDA versions, the card, its power limit.
-2. Build the three CUDA kernels from ``src/repro_torch/csrc`` (in parallel).
+2. Build the three CUDA kernels from ``src/repro_torch/csrc`` (in parallel);
+   print each rmsnorm instance's registers and fail if any spills.
 3. Hold each kernel against its plain PyTorch version at the serving shapes
-   and beyond (flash at Lq 2048 and a ragged 2000; decode at kv_len 0, 1,
-   chunk - 1, chunk, chunk + 1, 2047, 2048 with one split and many), in
-   bf16 and fp32, with the cache past ``kv_len`` poisoned with 1e9, inf and
-   nan; time the kernel, the plain version and one library call (the
-   yardstick, which the port never calls) at the serving shapes, at Lq 2048
-   and at kv 2048, and compute the card's bound for the same work.
+   and beyond (rmsnorm at the zoo's widths and ragged ones, 1 to 8192 rows,
+   strided and misaligned rows, NaN and inf rows beside finite ones; flash
+   at Lq 2048 and a ragged 2000; decode at kv_len 0, 1, chunk - 1, chunk,
+   chunk + 1, 2047, 2048 with one split and many), in bf16 and fp32, with
+   the cache past ``kv_len`` poisoned with 1e9, inf and nan; time the
+   kernel, the plain version and one library call (the yardstick, which the
+   port never calls) at the serving shapes, at Lq 2048, at kv 2048 and at
+   rmsnorm's [8192, 3072] and [64, 256], and compute the card's bound for
+   the same work; time rmsnorm's launch floor (an empty kernel on the same
+   grid) and its wrapper's host time a call.  Times print in microseconds.
 4. Serve llama3.2-3b at full width (28 layers, d 3072, vocab 128256, bf16,
    random weights from seed 0) through ``repro_torch.launch.serve.serve`` on
    ``cuda``, with every launch count zeroed just before and read just after.
@@ -23,7 +28,11 @@ Phases, each of which exits nonzero on failure:
    switch set to ``"plain"``, and compare the last-position logits; and
    hold both bf16 paths against the plain path in fp32.
 6. Profile 8 decode steps of the kernel path: wall time a step, device
-   kernel time a step, the device's busy share, the top kernels and host ops.
+   kernel time a step, the device's busy share, the top kernels and host
+   ops, and rmsnorm's device time and wrapper host time a step.
+
+``python3 chip_smoke.py --rmsnorm-times ROOT`` only times the rmsnorm
+wrapper of the checkout at ROOT (see :func:`rmsnorm_times`).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -32,8 +41,10 @@ rest of the repository beside it, it exits nonzero and prints no result.
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -51,6 +62,13 @@ REL_L2_TOL = 2e-2  # bf16 end to end through 28 layers, plain vs kernel path
 # 2^-9 / sqrt(3) = 1.1e-3; leaving one 64-key tile's P.V out of a row that
 # sees up to 2048 keys gives 3e-2 or more.
 ATTN_REL_L2_TOL = 1e-2
+# rmsnorm's checks on the card: the zoo's widths from 256 (the data plane)
+# to 8192, and two that are not a whole number of 16-byte pieces.
+RMS_WIDTHS = (256, 768, 896, 1000, 1001, 2048, 3072, 4608, 8192, 3)
+RMS_ROWS = (1, 4, 5, 33, 512, 8192)
+# rmsnorm's timed shapes (bf16): prefill and decode of the serving cell, a
+# 2048-token prefill, and the data plane's (64, 256).
+RMS_SHAPES = ((BATCH * PROMPT_LEN, 3072), (BATCH, 3072), (8192, 3072), (64, 256))
 F32_RATIO = 1.25  # kernel path's distance to the fp32 plain path over the bf16 plain path's
 
 # NVIDIA data-sheet peaks, dense: device memory bytes/s; bf16 tensor-core,
@@ -59,6 +77,27 @@ PEAKS = {
     "H100 SXM": {"bytes": 3.35e12, "bf16": 989e12, "fp32": 67e12},
     "H100 PCIe": {"bytes": 2.0e12, "bf16": 756e12, "fp32": 51e12},
 }
+
+
+def ptxas_report(log: str) -> list[tuple[str, int, int, int]]:
+    """(kernel, registers, spill-store bytes, spill-load bytes) for each kernel
+    of an ``nvcc -Xptxas -v`` log; rmsnorm's instances are named by their
+    template arguments (dtype, elements a load, loads a thread)."""
+    out, name, spill = [], None, (0, 0)
+    for line in log.splitlines():
+        if m := re.search(r"Function properties for (\S+)", line):
+            name = m.group(1)
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line):
+            spill = (int(m.group(1)), int(m.group(2)))
+        elif (m := re.search(r"Used (\d+) registers", line)) and name:
+            if t := re.search(r"rmsnorm_kernelI(\w+?)Li(\d+)ELi(\d+)E", name):
+                dt = "bf16" if "bfloat16" in t.group(1) else "fp32"
+                name = f"rmsnorm_kernel<{dt}, vec {t.group(2)}, n {t.group(3)}>"
+            elif "empty_kernel" in name:
+                name = "empty_kernel"
+            out.append((name, int(m.group(1)), *spill))
+            name, spill = None, (0, 0)
+    return out
 
 
 def fail(msg: str) -> None:
@@ -102,15 +141,41 @@ class Bench:
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def us(ms: float) -> str:
+    """A time in ms, printed in microseconds to three significant digits."""
+    return f"{ms * 1e3:.3g} us"
+
+
+def host_us(torch, fn, calls: int = 1000, loops: int = 5) -> float:
+    """Host microseconds a call: ``calls`` calls enqueued on a synced card,
+    over ``calls``; the median of ``loops`` such loops."""
+    fn()
+    times = []
+    for _ in range(loops):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(times)
+
+
 def rel_l2(got, want) -> float:
     return float((got.float() - want).norm() / want.norm())
 
 
-def check_close(name: str, got, want, tol: float) -> float:
+def close(got, want, tol: float) -> tuple[float, bool]:
+    """Max abs error, and whether every element is finite and within
+    ``tol`` abs + ``tol`` relative of ``want``."""
     got, want = got.float(), want.float()
     err = (got - want).abs()
-    mx = float(err.max())
     ok = bool((err <= tol + tol * want.abs()).all()) and bool(got.isfinite().all())
+    return float(err.max()), ok
+
+
+def check_close(name: str, got, want, tol: float) -> float:
+    mx, ok = close(got, want, tol)
     print(f"  {name}: max_abs_err {mx:.3e} (tol {tol:g} abs + rel) {'ok' if ok else 'FAIL'}")
     if not ok:
         fail(f"{name} disagrees with its plain version")
@@ -130,6 +195,8 @@ def phase_kernels(torch, bench: Bench) -> dict:
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention, split_chunk
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels import rmsnorm as rms_module
+    from repro_torch.kernels.rmsnorm import plan as rms_plan
     from repro_torch.kernels.rmsnorm import rmsnorm
 
     # As TOL in tests/test_kernels.py: fp32 sums in another order; a bf16
@@ -187,12 +254,57 @@ def phase_kernels(torch, bench: Bench) -> dict:
         return want32, rel_l2(plain(vf), want32)
 
     print("[3] kernels vs plain versions")
-    # -- rmsnorm --------------------------------------------------------------
+    # -- rmsnorm: widths of the zoo and two ragged ones (1001 and 3 take the
+    # scalar path; 1000 is 125 bf16 pieces of 16 bytes, the vector path with
+    # a part-idle last round), row counts that leave the last block ragged,
+    # and x and y as contiguous rows, as rows of stride d + 8 and as views
+    # one element off 16-byte alignment (the scalar path).  y's buffer is
+    # filled with 7 first: what lies outside the view must keep it.
+    def rms_case(rows, d, layout, dtype):
+        if layout == "contiguous":
+            x = randn(rows, d, dtype=dtype)
+            buf = torch.full((rows, d), 7.0, dtype=dtype, device=dev)
+            return x, buf, buf, None
+        if layout == "row stride d+8":
+            x = randn(rows, d + 8, dtype=dtype)[:, :d]
+            buf = torch.full((rows, d + 8), 7.0, dtype=dtype, device=dev)
+            return x, buf, buf[:, :d], buf[:, d:]
+        x = randn(rows * d + 1, dtype=dtype)[1:].view(rows, d)
+        buf = torch.full((rows * d + 1,), 7.0, dtype=dtype, device=dev)
+        return x, buf, buf[1:].view(rows, d), buf[:1]
+
     for dtype in (torch.bfloat16, torch.float32):
-        for n in (512, 5):
-            x = randn(n, DM, dtype=dtype)
-            w = randn(DM, dtype=dtype) * 0.1
-            check("rmsnorm", f"rmsnorm {str(dtype)[6:]} [{n}, {DM}]", rmsnorm(x, w), ref.rmsnorm_ref(x, w), dtype)
+        key = str(dtype)[6:]
+        for d in RMS_WIDTHS:
+            w = randn(d, dtype=dtype) * 0.1
+            worst, cases = 0.0, 0
+            for rows in RMS_ROWS:
+                for layout in ("contiguous", "row stride d+8", "one element off 16 B"):
+                    x, buf, out, rest = rms_case(rows, d, layout, dtype)
+                    got = rmsnorm(x, w, out=out)
+                    e, ok = close(got, ref.rmsnorm_ref(x, w), TOL[dtype])
+                    if got.data_ptr() != out.data_ptr() or (rest is not None and not bool((rest == 7).all())):
+                        ok = False
+                    if not ok:
+                        fail(f"rmsnorm {key} [{rows}, {d}] {layout}: max abs err {e:.3e} "
+                             f"(tol {TOL[dtype]:g}), or it wrote outside its output")
+                    worst, cases = max(worst, e), cases + 1
+            # One row of NaN and one of inf, in blocks that hold other rows
+            # (a block holds 4 rows at d <= 1024 and 2 at d <= 2048): every
+            # other row must still match and stay finite.
+            x = randn(33, d, dtype=dtype)
+            x[5, 0], x[6, d // 2] = float("nan"), float("inf")
+            got, want = rmsnorm(x, w), ref.rmsnorm_ref(x, w)
+            keep = [i for i in range(33) if i not in (5, 6)]
+            e, ok = close(got[keep], want[keep], TOL[dtype])
+            if not ok:
+                fail(f"rmsnorm {key} d={d}: a NaN or inf row reached another row (max abs err {e:.3e})")
+            worst = max(worst, e)
+            p = rms_plan(d, dtype)
+            print(f"  rmsnorm {key} d={d} (aligned: {p}): {cases} cases (rows x layouts), "
+                  f"NaN/inf rows kept apart: max abs err {worst:.3e} (tol {TOL[dtype]:g}) ok")
+            errs["rmsnorm"][key] = max(errs["rmsnorm"].get(key, 0.0), worst)
+        del x, buf, out, got, want
 
     # -- flash: model layout (strided views) over a cache whose rows at or past
     # kv_len hold 1e9, inf or nan; the plain version reads the clean cache, so
@@ -334,36 +446,61 @@ def phase_kernels(torch, bench: Bench) -> dict:
               f"fp32 {e['float32']:.3e}{rel}")
 
     # -- times at the serving shapes and at 2048 (bf16) ------------------------
-    print("[3] times, bf16, cold L2 (median of 25 launches)")
+    print("[3] times, bf16, cold L2 (median of 25 launches), in us")
     bf, es = torch.bfloat16, 2
     cache_len = PROMPT_LEN + GEN
     rows = {"rmsnorm": [], "flash_attention": [], "decode_attention": []}
 
-    def record(kernel, shape, fn, plain, lib, nbytes, ops, rate):
+    def record(kernel, shape, fn, plain, lib, nbytes, ops, rate, floor=None):
+        """Times ``fn`` (the kernel), ``plain`` and ``lib``, and ``floor`` (an
+        empty kernel on the same grid) if given."""
         t = bench.ms(fn)
         tp = bench.ms(plain)
         tl = bench.ms(lib) if lib is not None else None
+        tf = bench.ms(floor) if floor is not None else None
         b, by = bench.bound(nbytes, ops, rate)
-        lib_s = f"{tl:.4f} ms, kernel/library {t / tl:.2f}x" if tl is not None else "n/a"
+        lib_s = f"{us(tl)}, kernel/library {t / tl:.3g}x" if tl is not None else "n/a"
+        floor_s = f"; launch floor on its grid {us(tf)}, kernel - floor {us(t - tf)}" if tf is not None else ""
         print(
-            f"  {kernel} {shape}: kernel {t:.4f} ms, plain {tp:.4f} ms, library {lib_s}; "
-            f"bound {b:.4f} ms ({by}), {b / t:.1%} of bound"
+            f"  {kernel} {shape}: kernel {us(t)}, plain {us(tp)}, library {lib_s}; "
+            f"bound {us(b)} ({by}), {b / t:.3g} of bound{floor_s}"
         )
         rows[kernel].append({
             "shape": shape, "ms": t, "plain_ms": tp, "library_ms": tl, "bound_ms": b,
-            "bound_by": by, "max_abs_err": max(errs[kernel].values()),
+            "bound_by": by, "max_abs_err": max(errs[kernel].values()), "launch_floor_ms": tf,
         })
 
-    for n in (BATCH * PROMPT_LEN, BATCH):
-        x = randn(n, DM, dtype=bf)
-        w = randn(DM, dtype=bf) * 0.1
+    empty = rms_module._kernel("rmsnorm_empty_launch")
+    for n, dm in RMS_SHAPES:
+        x = randn(n, dm, dtype=bf)
+        w = randn(dm, dtype=bf) * 0.1
         w1 = 1.0 + w
+        _, args = rms_module.launch_args(x, w)
         record(
-            "rmsnorm", f"[{n}, {DM}]",
+            "rmsnorm", f"[{n}, {dm}]",
             lambda: rmsnorm(x, w), lambda: ref.rmsnorm_ref(x, w),
-            lambda: F.rms_norm(x, (DM,), weight=w1, eps=1e-6),
-            (2 * n * DM + DM) * es, 4 * n * DM, "fp32",
+            lambda: F.rms_norm(x, (dm,), weight=w1, eps=1e-6),
+            (2 * n * dm + dm) * es, 4 * n * dm, "fp32", floor=lambda: empty(*args),
         )
+    # The launch floor alone: the empty kernel on one block (the grid of one
+    # row at d 3072), launched through the same ctypes route.
+    x, w = randn(BATCH, DM, dtype=bf), randn(DM, dtype=bf) * 0.1
+    _, args = rms_module.launch_args(x[:1], w)
+    floor = bench.ms(lambda: empty(*args))
+    print(f"  launch floor: an empty kernel, 1 block, through ctypes: {us(floor)}")
+    rows["rmsnorm"][1]["launch_floor_1_block_ms"] = floor
+    # The wrapper's host cost: 1000 calls enqueued on a synced card, over 1000;
+    # beside it the same launch through ctypes alone, and the empty kernel's.
+    y, args = rms_module.launch_args(x, w)
+    kern = rms_module._kernel()
+    host = {
+        "wrapper": host_us(torch, lambda: rmsnorm(x, w)),
+        "ctypes launch": host_us(torch, lambda: kern(*args)),
+        "ctypes empty launch": host_us(torch, lambda: empty(*args)),
+    }
+    print(f"  rmsnorm [{BATCH}, {DM}] host time a call (median of 5 loops of 1000 calls): "
+          + ", ".join(f"{k} {v:.3g} us" for k, v in host.items()))
+    rows["rmsnorm"][1]["host_us"] = host
 
     # prefill: q [B, L, 24, 128] against the layer's cache [B, L + GEN, 8, 128]
     # at the serving prompt, and at a 2048-token prompt, where the tensor
@@ -407,11 +544,14 @@ def profile_decode(torch, model, params, prompts, steps: int = 8) -> None:
 
     Prints the host's wall time a step (timed without the profiler), the
     device's kernel time a step and so its busy share, and the kernels and host
-    operations that take the most time (from a second, profiled run).
+    operations that take the most time (from a second, profiled run), and
+    rmsnorm's rows: its kernel's device time and its wrapper's host time (a
+    ``record_function`` span around the wrapper, in the profiled run only).
     """
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
+    from repro_torch.kernels import rmsnorm as rms_module
     from repro_torch.launch.steps import make_serve_step
 
     step = make_serve_step(model)
@@ -430,17 +570,28 @@ def profile_decode(torch, model, params, prompts, steps: int = 8) -> None:
             tok.cpu()  # as serve() does: each token goes to the host
         torch.cuda.synchronize()
         wall_ms = (time.monotonic() - t0) * 1e3 / steps
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(steps):
-                tok, cache = step(params, cache, tok)
-                tok.cpu()
-            torch.cuda.synchronize()
+        wrapper = rms_module.rmsnorm
+
+        def spanned(*args, **kwargs):
+            with record_function("rmsnorm wrapper"):
+                return wrapper(*args, **kwargs)
+
+        rms_module.rmsnorm = spanned
+        try:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(steps):
+                    tok, cache = step(params, cache, tok)
+                    tok.cpu()
+                torch.cuda.synchronize()
+        finally:
+            rms_module.rmsnorm = wrapper
     avgs = prof.key_averages()
     # Device-side events only (the kernels and copies themselves): CPU ops
-    # also carry their kernels' device time, which would count it twice.
+    # also carry their kernels' device time, which would count it twice, and
+    # so does the wrapper's span, which the profiler also draws on the device.
     dev = [
         (e.key, e.device_time_total / 1e3 / steps, e.count / steps)
-        for e in avgs if e.device_type == DeviceType.CUDA
+        for e in avgs if e.device_type == DeviceType.CUDA and e.key != "rmsnorm wrapper"
     ]
     dev.sort(key=lambda d: -d[1])
     busy_ms = sum(d[1] for d in dev)
@@ -456,9 +607,58 @@ def profile_decode(torch, model, params, prompts, steps: int = 8) -> None:
     host = sorted(avgs, key=lambda e: -e.self_cpu_time_total)[:6]
     for e in host:
         print(f"  host {e.self_cpu_time_total / 1e3 / steps:8.3f} ms a step  x{e.count / steps:<4.0f} {e.key[:80]}")
+    rms_dev = [d for d in dev if "rmsnorm_kernel" in d[0]]
+    rms_ms, rms_n = sum(d[1] for d in rms_dev), sum(d[2] for d in rms_dev)
+    span = [e for e in avgs if e.key == "rmsnorm wrapper" and e.device_type == DeviceType.CPU]
+    host_s = "not recorded"
+    if span:
+        e = span[0]
+        host_s = (f"{e.cpu_time_total / 1e3 / steps:.3f} ms a step over {e.count / steps:.0f} calls, "
+                  f"{e.cpu_time_total / e.count:.3g} us a call (profiled)")
+    print(f"[6] rmsnorm in a decode step: device {rms_ms:.4f} ms over {rms_n:.0f} launches "
+          f"({rms_ms / busy_ms:.1%} of device time); host, wrapper span: {host_s}")
+
+
+def nvidia_smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip()
+
+
+def rmsnorm_times(torch, root: Path) -> int:
+    """``--rmsnorm-times ROOT``: the rmsnorm wrapper of the port in ``ROOT``
+    (a checkout: this one, or another commit's unpacked beside it) timed at
+    RMS_SHAPES beside ``F.rms_norm``, and its host time a call at [4, 3072].
+    Run it once for each of two checkouts in turns (A, B, B, A) to compare
+    them on one card; it prints one JSON line."""
+    import torch.nn.functional as F
+
+    sys.path.insert(0, str(root / "src"))
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.rmsnorm import rmsnorm
+
+    _build.build(("rmsnorm",))
+    bench = Bench(torch, sku_of(torch.cuda.get_device_name(0)))
+    g = torch.Generator(device="cuda").manual_seed(1234)
+    res = {"root": str(root), "device": nvidia_smi(), "ms": {}, "library_ms": {}}
+    for n, dm in RMS_SHAPES:
+        x = torch.randn((n, dm), generator=g, device="cuda").to(torch.bfloat16)
+        w = torch.randn((dm,), generator=g, device="cuda").to(torch.bfloat16) * 0.1
+        w1 = 1.0 + w
+        res["ms"][f"[{n}, {dm}]"] = bench.ms(lambda: rmsnorm(x, w))
+        res["library_ms"][f"[{n}, {dm}]"] = bench.ms(lambda: F.rms_norm(x, (dm,), weight=w1, eps=1e-6))
+        if n == BATCH:
+            res["host_us"] = host_us(torch, lambda: rmsnorm(x, w))
+    print(json.dumps(res))
+    return 0
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--rmsnorm-times", metavar="ROOT", type=Path,
+                    help="only time the rmsnorm wrapper of the checkout at ROOT")
+    opts = ap.parse_args()
     try:
         import torch
     except ModuleNotFoundError:
@@ -467,9 +667,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
-    if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
-        print(f"chip_smoke: no src/repro_torch beside {Path(__file__).name}", file=sys.stderr)
+    root = ROOT if opts.rmsnorm_times is None else opts.rmsnorm_times.resolve()
+    if not (root / "src" / "repro_torch" / "csrc").is_dir():
+        print(f"chip_smoke: no src/repro_torch in {root}", file=sys.stderr)
         return 1
+    if opts.rmsnorm_times is not None:
+        return rmsnorm_times(torch, root)
     sys.path.insert(0, str(ROOT / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -483,10 +686,7 @@ def main() -> int:
     t_start = time.monotonic()
     # -- 1. environment -------------------------------------------------------
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip()
+    smi = nvidia_smi()
     sku = sku_of(name)
     print(f"[1] python {sys.version.split()[0]}, torch {torch.__version__}, CUDA {torch.version.cuda}")
     print(f"[1] device {name} x{torch.cuda.device_count()}; bounds from the {sku} data sheet")
@@ -496,6 +696,19 @@ def main() -> int:
     t0 = time.monotonic()
     secs = kops.build()
     print(f"[2] built {', '.join(f'{k} {v:.1f} s' for k, v in secs.items())}; {time.monotonic() - t0:.1f} s in all")
+    from repro_torch.kernels import _build
+
+    for kernel in _build.KERNELS:
+        report = ptxas_report((_build.BUILD_DIR / f"{kernel}.log").read_text())
+        spilled = [r for r in report if r[2] or r[3]]
+        if kernel == "rmsnorm":
+            for fn, regs, st, ld in report:
+                print(f"  {fn}: {regs} registers, spill stores {st} B, spill loads {ld} B")
+        else:
+            print(f"  {kernel}: {len(report)} kernels, {min(r[1] for r in report)}-"
+                  f"{max(r[1] for r in report)} registers, {len(spilled)} with spills")
+        if kernel == "rmsnorm" and spilled:
+            fail(f"rmsnorm spills registers: {spilled}")
 
     # -- 3. kernels vs plain -----------------------------------------------------
     bench = Bench(torch, sku)

@@ -202,7 +202,13 @@ class TestDecodeAttention:
 
 
 class TestRMSNorm:
-    @pytest.mark.parametrize("shape,d", [((7, 64), 64), ((2, 33, 128), 128), ((256, 512), 512)])
+    # The last three: the data plane's d 256, a d of 125 bf16 16-byte pieces
+    # (a part-idle last round of the kernel's loads) and llama3.2-3b's 3072.
+    @pytest.mark.parametrize(
+        "shape,d",
+        [((7, 64), 64), ((2, 33, 128), 128), ((256, 512), 512),
+         ((2, 5, 256), 256), ((3, 7, 1000), 1000), ((2, 4, 3072), 3072)],
+    )
     @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
     def test_sweep(self, shape, d, dtype):
         jx, tx = _both(_normal(17, *shape), dtype)
@@ -214,12 +220,60 @@ class TestRMSNorm:
             _close(got, pallas_rmsnorm(jx, jw, block_rows=32, interpret=True), TOL[dtype])
 
     def test_row_padding_path(self):
-        # 5 rows: the Pallas kernel pads to a block multiple; the port has
-        # one block a row and pads nothing.
+        # 5 rows: the Pallas kernel pads to a block multiple; the port's
+        # grid covers the rows exactly and pads nothing.
         x = _normal(19, 5, 64)
         got = rmsnorm(torch.from_numpy(x), torch.zeros(64))
         want = pallas_rmsnorm(jnp.asarray(x), jnp.zeros((64,)), block_rows=4, interpret=True)
         _close(got, want, 1e-6)
+
+
+    def test_out_view_is_written_in_place(self):
+        # A row-strided output view: written, returned, and nothing past d.
+        x = torch.from_numpy(_normal(20, 6, 64))
+        buf = torch.full((6, 72), 7.0)
+        got = rmsnorm(x, torch.zeros(64), out=buf[:, :64])
+        assert got.data_ptr() == buf.data_ptr()
+        _close(buf[:, :64], tref.rmsnorm_ref(x, torch.zeros(64)), 0.0)
+        assert bool((buf[:, 64:] == 7.0).all())
+
+
+ZOO_WIDTHS = (256, 768, 896, 1024, 2048, 3072, 4096, 4608, 6144, 8192)
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", ZOO_WIDTHS + (1001, 3))
+def test_rmsnorm_plan(d, dtype, aligned):
+    from repro_torch.kernels.rmsnorm import MAX_THREADS, VALUES, plan
+
+    esize = dtype.itemsize
+    # Misaligned: one element off 16 bytes in a pointer, or a row stride of
+    # d + 1 elements.
+    bits = 0 if aligned else (esize if d % 2 else (d + 1) * esize)
+    p = plan(d, dtype, bits)
+    ragged = d % (16 // esize) != 0
+    assert p.vec == (1 if ragged or not aligned else 16 // esize)
+    # The plan covers d exactly: every piece has one thread, and no round of
+    # loads is idle for all the threads of a row.
+    threads = 32 * p.warps
+    assert d % p.vec == 0
+    assert threads * (p.n - 1) < d // p.vec <= threads * p.n
+    assert p.vec * p.n <= VALUES and threads * p.rows <= MAX_THREADS
+    if d <= 1024:
+        assert p.warps == 1 and p.rows == 4  # a warp a row, several rows a block
+    elif p.vec > 1:
+        assert 8 <= p.vec * p.n  # a group of warps a row, 8-32 values a thread
+    assert plan(d, dtype, 16 * 12345 + bits) == p  # only the low 4 bits count
+
+
+def test_rmsnorm_plan_limits():
+    from repro_torch.kernels.rmsnorm import MAX_D, plan
+
+    assert plan(MAX_D, torch.float32).warps == 8
+    for d in (0, MAX_D + 1):
+        with pytest.raises(ValueError, match="0 < d"):
+            plan(d, torch.bfloat16)
 
 
 def test_launch_counts_untouched_by_plain_versions():
