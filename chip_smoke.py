@@ -18,7 +18,8 @@ Phases, each of which exits nonzero on failure:
    the cache past ``kv_len`` poisoned with 1e9, inf and nan; time the
    kernel, the plain version and one library call (the yardstick, which the
    port never calls) at the serving shapes, at Lq 2048, at kv 2048 and at
-   rmsnorm's [8192, 3072] and [64, 256], and compute the card's bound for
+   rmsnorm's [8192, 3072] and [64, 256] (bf16, and fp32 as the data plane
+   of phase 7 runs them), and compute the card's bound for
    the same work; time rmsnorm's launch floor (an empty kernel on the same
    grid) and its wrapper's host time a call.  Times print in microseconds.
 4. Serve llama3.2-3b at full width (28 layers, d 3072, vocab 128256, bf16,
@@ -30,11 +31,25 @@ Phases, each of which exits nonzero on failure:
 6. Profile 8 decode steps of the kernel path: wall time a step, device
    kernel time a step, the device's busy share, the top kernels and host
    ops, and rmsnorm's device time and wrapper host time a step.
+7. The data plane, SWIRL's own main path: ``repro_torch.swirl.trace(...)
+   .optimize().lower("torch", fuse=...).compile(fns).run(...)`` on the
+   reference benchmark's 12-step rmsnorm pipeline at (64, 256) and at
+   [8192, 3072] fp32, and on the 1000 Genomes instance (9 locations on
+   the card, float32 payloads of 65536), interpreted and fused (each
+   straight-line run of steps one CUDA graph).  Fused stores must match
+   the interpreted ones (rtol 1e-5, atol 1e-6), each rmsnorm step its plain
+   version (fp32 2e-5); no fallbacks and 12 fused steps; 3 rmsnorm wrapper
+   launches an interpreted run and 3 rmsnorm kernels in a profiled fused
+   replay; a host sync in a body falls back; a second fused run leaves
+   the first store as it was.  Prints ms a run, fused / interpreted and
+   the roofline fraction beside the card's name and power limit.
 
 ``python3 chip_smoke.py --rmsnorm-times ROOT`` only times the rmsnorm
 wrapper of the checkout at ROOT (see :func:`rmsnorm_times`).
 
-The line before the last is the kernels' JSON record; the last line is
+The line before the last is the kernels' JSON record (each kernel's
+launches on each path under ``launches_by_path``), the data plane's
+numbers one line above the card's name; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 rest of the repository beside it, it exits nonzero and prints no result.
 """
@@ -50,6 +65,8 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 
@@ -70,6 +87,14 @@ RMS_ROWS = (1, 4, 5, 33, 512, 8192)
 # 2048-token prefill, and the data plane's (64, 256).
 RMS_SHAPES = ((BATCH * PROMPT_LEN, 3072), (BATCH, 3072), (8192, 3072), (64, 256))
 F32_RATIO = 1.25  # kernel path's distance to the fp32 plain path over the bf16 plain path's
+# Phase 7, the data plane: the reference benchmark's 12-step pipeline
+# (benchmarks/run.py, rmsnorm on steps k = 0, 4, 8), at its own (64, 256)
+# and at llama3.2-3b's width for a 2048-token prefill at batch 4, and the
+# 1000 Genomes instance at the paper's scale; 7 timed runs an arm after a warm one.
+DP_STEPS, DP_REPEATS = 12, 7
+DP_SHAPES = {"P-ref": (64, 256), "P-full": (8192, 3072)}
+DP_RTOL, DP_ATOL = 1e-5, 1e-6  # the reference benchmark's fused-vs-interpreted gate
+G_ELEMS = 65536
 
 # NVIDIA data-sheet peaks, dense: device memory bytes/s; bf16 tensor-core,
 # and fp32 CUDA-core, operations/s.
@@ -446,7 +471,7 @@ def phase_kernels(torch, bench: Bench) -> dict:
               f"fp32 {e['float32']:.3e}{rel}")
 
     # -- times at the serving shapes and at 2048 (bf16) ------------------------
-    print("[3] times, bf16, cold L2 (median of 25 launches), in us")
+    print("[3] times, bf16 unless marked fp32, cold L2 (median of 25 launches), in us")
     bf, es = torch.bfloat16, 2
     cache_len = PROMPT_LEN + GEN
     rows = {"rmsnorm": [], "flash_attention": [], "decode_attention": []}
@@ -481,6 +506,18 @@ def phase_kernels(torch, bench: Bench) -> dict:
             lambda: rmsnorm(x, w), lambda: ref.rmsnorm_ref(x, w),
             lambda: F.rms_norm(x, (dm,), weight=w1, eps=1e-6),
             (2 * n * dm + dm) * es, 4 * n * dm, "fp32", floor=lambda: empty(*args),
+        )
+    # The data plane's shapes in its own dtype, fp32 (phase 7).
+    for n, dm in DP_SHAPES.values():
+        x = randn(n, dm, dtype=torch.float32)
+        w = randn(dm, dtype=torch.float32) * 0.1
+        w1 = 1.0 + w
+        _, args = rms_module.launch_args(x, w)
+        record(
+            "rmsnorm", f"[{n}, {dm}] fp32",
+            lambda: rmsnorm(x, w), lambda: ref.rmsnorm_ref(x, w),
+            lambda: F.rms_norm(x, (dm,), weight=w1, eps=1e-6),
+            (2 * n * dm + dm) * 4, 4 * n * dm, "fp32", floor=lambda: empty(*args),
         )
     # The launch floor alone: the empty kernel on one block (the grid of one
     # row at d 3072), launched through the same ctypes route.
@@ -617,6 +654,211 @@ def profile_decode(torch, model, params, prompts, steps: int = 8) -> None:
                   f"{e.cpu_time_total / e.count:.3g} us a call (profiled)")
     print(f"[6] rmsnorm in a decode step: device {rms_ms:.4f} ms over {rms_n:.0f} launches "
           f"({rms_ms / busy_ms:.1%} of device time); host, wrapper span: {host_s}")
+
+
+def dp_pipeline(swirl, make_instance, make_workflow):
+    steps = [f"s{i}" for i in range(1, DP_STEPS + 1)]
+    ports = [f"p{i}" for i in range(DP_STEPS + 1)]
+    deps = []
+    for i, s in enumerate(steps):
+        deps += [(f"p{i}", s), (s, f"p{i + 1}")]
+    inst = make_instance(
+        workflow=make_workflow(steps, ports, deps),
+        locations=frozenset({"l0"}),
+        mapping={s: ("l0",) for s in steps},
+        data=frozenset(f"d{i}" for i in range(DP_STEPS + 1)),
+        placement={f"d{i}": f"p{i}" for i in range(DP_STEPS + 1)},
+        initial_data={"l0": frozenset({"d0"})},
+    )
+    return swirl.trace(inst).optimize()
+
+
+def dp_fns(norm, mix):
+    return {
+        f"s{k + 1}": (
+            lambda i, a=f"d{k}", b=f"d{k + 1}", f=(norm if k % 4 == 0 else mix): {b: f(i[a])}
+        )
+        for k in range(DP_STEPS)
+    }
+
+
+def dp_time(torch, exe, feed) -> tuple[list[float], object]:
+    """Wall ms of DP_REPEATS runs after a warm one (each ends in a sync), and
+    the last run's result."""
+    exe.run(initial_payloads=dict(feed))
+    torch.cuda.synchronize()
+    times, res = [], None
+    for _ in range(DP_REPEATS):
+        t0 = time.perf_counter()
+        res = exe.run(initial_payloads=dict(feed))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times, res
+
+
+def dp_stores_close(torch, name: str, got: dict, want: dict) -> None:
+    for loc in want:
+        for d, w in want[loc].items():
+            g = got[loc][d]
+            if not (isinstance(g, torch.Tensor) and g.shape == w.shape and bool(g.isfinite().all())
+                    and torch.allclose(g, w, rtol=DP_RTOL, atol=DP_ATOL)):
+                fail(f"{name}: fused store {loc}/{d} disagrees with the interpreted one")
+
+
+def dp_device_split(avgs, cuda) -> dict:
+    """Device ms and kernel count of one profiled run, by kind: the rmsnorm
+    kernel, copies (memcpy and copy kernels), everything else, and the total."""
+    split = {"rmsnorm": [0.0, 0], "copies": [0.0, 0], "other": [0.0, 0], "total": [0.0, 0]}
+    for e in avgs:
+        if e.device_type != cuda:
+            continue
+        key = e.key.lower()
+        kind = "rmsnorm" if "rmsnorm_kernel" in key else (
+            "copies" if "memcpy" in key or "copy" in key else "other")
+        for k in (kind, "total"):
+            split[k][0] += e.device_time_total / 1e3
+            split[k][1] += e.count
+    return split
+
+
+def phase_dataplane(torch, smi: str) -> dict:
+    """Phase 7: SWIRL's own main path on the card — trace → optimize → lower
+    ("torch") → compile → run, interpreted and fused (CUDA graphs).
+
+    Checks each fused store against the interpreted one, each rmsnorm step
+    against the plain version, the fused stats, the wrapper's launches a run,
+    and the rmsnorm kernels in a profiled replay; a body that cannot be
+    captured (a host sync) must fall back and leave the card usable, and a
+    second fused run must leave the first run's store as it was.  Returns
+    the numbers it prints, and the wrapper launches over the whole phase.
+    """
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import swirl
+    from repro_torch.core.graph import DistributedWorkflowInstance, make_workflow
+    from repro_torch.core.translate import genomes_1000
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+
+    out = {"device": smi}
+    plan = dp_pipeline(swirl, DistributedWorkflowInstance, make_workflow)
+    mix = lambda v: 0.5 * v + 0.1 * torch.tanh(v)  # noqa: E731
+    kops.reset_launch_counts()
+    for label, shape in DP_SHAPES.items():
+        w = torch.ones(shape[1], device="cuda")
+        fns = dp_fns(lambda v, w=w: kops.rmsnorm(v, w), mix)
+        x = torch.from_numpy(np.random.default_rng(7).standard_normal(shape).astype(np.float32)).cuda()
+        feed = {("l0", "d0"): x}
+        interp = plan.lower("torch").compile(fns)
+        fused = plan.lower("torch", fuse=True).compile(fns)
+        t_i, res_i = dp_time(torch, interp, feed)
+        t_f, res_f = dp_time(torch, fused, feed)
+        dp_stores_close(torch, label, res_f.data, res_i.data)
+        for k in (0, 4, 8):  # the rmsnorm steps, against the plain version
+            want = ref.rmsnorm_ref(res_i.data["l0"][f"d{k}"], w)
+            for arm, res in (("interpreted", res_i), ("fused", res_f)):
+                check_close(f"{label} {arm} d{k + 1} = rmsnorm(d{k})", res.data["l0"][f"d{k + 1}"],
+                            want, 2e-5)
+        before = kops.launch_counts()["rmsnorm"]
+        interp.run(initial_payloads=dict(feed))
+        per_run = kops.launch_counts()["rmsnorm"] - before
+        if per_run != 3:
+            fail(f"{label}: an interpreted run launched rmsnorm {per_run} times, not 3")
+        f = res_f.stats["fused"]
+        if f["fallbacks"] != 0 or f["fused_execs"] != DP_STEPS or f["fused_calls"] != 1:
+            fail(f"{label}: fused stats {f}")
+        split = {}
+        for arm, exe in (("interpreted", interp), ("fused", fused)):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                exe.run(initial_payloads=dict(feed))
+                torch.cuda.synchronize()
+            split[arm] = dp_device_split(prof.key_averages(), DeviceType.CUDA)
+        n_rms = split["fused"]["rmsnorm"][1]
+        if n_rms != 3:
+            fail(f"{label}: a profiled fused replay ran {n_rms} rmsnorm kernels, not 3")
+        roof = f["roofline"]["l0"]
+        mi, mf = min(t_i), min(t_f)
+        out[label] = {
+            "shape": list(shape), "interpreted_ms": t_i, "fused_ms": t_f,
+            "interpreted_min_ms": mi, "fused_min_ms": mf, "fused_over_interpreted": mf / mi,
+            "fused": {k: v for k, v in f.items() if k != "roofline"}, "roofline": roof,
+            "profiled_replay_rmsnorm_kernels": n_rms, "interpreted_rmsnorm_launches": per_run,
+            "device_ms_by_kind": split,
+        }
+        frac = roof["fraction_of_roof"]
+        print(
+            f"[7] {label} {shape} fp32: interpreted {mi:.4f} ms (median "
+            f"{statistics.median(t_i):.4f}), fused {mf:.4f} ms (median {statistics.median(t_f):.4f}) a "
+            f"run, fused/interpreted {mf / mi:.3f}; roofline {roof['achieved_bytes_per_s'] / 1e9:.2f} GB/s "
+            f"of {roof['theoretical_bytes_per_s'] / 1e9:.0f}, fraction {frac:.4f}; profiled replay: "
+            f"{n_rms} rmsnorm kernels; {smi}"
+        )
+        print(f"[7] {label} fused stats: {json.dumps(out[label]['fused'])}")
+        for arm, kinds in split.items():
+            print(f"[7] {label} {arm}, one profiled run, device ms (kernels) by kind: "
+                  + ", ".join(f"{k} {ms:.4f} ({n})" for k, (ms, n) in kinds.items()))
+        if label == "P-ref":
+            # A second fused run leaves the first run's store as it was.
+            first = fused.run(initial_payloads=dict(feed))
+            kept = {d: v.clone() for d, v in first.data["l0"].items()}
+            fused.run(initial_payloads={("l0", "d0"): torch.randn_like(x)})
+            torch.cuda.synchronize()
+            if any(not torch.equal(first.data["l0"][d], v) for d, v in kept.items()):
+                fail("a second fused run changed the first run's store")
+            # A body with a host sync cannot be captured: the segment falls back.
+            sync_fns = dict(fns)
+            sync_fns["s2"] = lambda i: {"d2": i["d1"] * float(i["d1"].abs().max())}
+            want = plan.lower("torch").compile(sync_fns).run(initial_payloads=dict(feed))
+            got = plan.lower("torch", fuse=True).compile(sync_fns).run(initial_payloads=dict(feed))
+            gf = got.stats["fused"]
+            if (gf["fallbacks"], gf["fused_calls"]) != (1, 0):
+                fail(f"a host sync in a body did not fall back: {gf}")
+            dp_stores_close(torch, "host-sync fallback", got.data, want.data)
+            again = fused.run(initial_payloads=dict(feed))
+            dp_stores_close(torch, "P-ref after a failed capture", again.data, res_i.data)
+            print("[7] P-ref: a second fused run left the first store as it was; a host sync in a "
+                  "body fell back (fallbacks 1) and the card ran on")
+        del interp, fused, res_i, res_f
+        torch.cuda.empty_cache()
+
+    # G: 1000 Genomes, 9 locations on one card, comms between them.
+    inst = genomes_1000(n=4, m=3, a=2, b=2, c=2)
+    rng = np.random.default_rng(0)
+    init = {("l^d", d): torch.from_numpy(rng.random(G_ELEMS).astype(np.float32)).cuda()
+            for d in sorted(inst.g("l^d"))}
+    fns = {}
+    for s in inst.workflow.steps:
+        outs = inst.out_data(s)
+        if s == "s0":
+            fns[s] = lambda i, outs=outs: {o: init[("l^d", o)] for o in outs}
+        else:
+            fns[s] = lambda i, outs=outs: {
+                o: sum(torch.sum(v) for v in i.values()) * torch.ones(G_ELEMS, device="cuda")
+                for o in outs
+            }
+    gplan = swirl.trace(inst).optimize(("R1R2", "R3"))
+    t_i, res_i = dp_time(torch, gplan.lower("torch").compile(fns), init)
+    t_f, res_f = dp_time(torch, gplan.lower("torch", fuse=True).compile(fns), init)
+    dp_stores_close(torch, "G", res_f.data, res_i.data)
+    mi, mf = min(t_i), min(t_f)
+    f = res_f.stats["fused"]
+    out["G"] = {
+        "locations": len(res_i.stats["devices"]), "comms": res_i.stats["comms"],
+        "execs": res_i.stats["execs"], "interpreted_ms": t_i, "fused_ms": t_f,
+        "interpreted_min_ms": mi, "fused_min_ms": mf, "fused_over_interpreted": mf / mi,
+        "fused": {k: v for k, v in f.items() if k != "roofline"}, "roofline": f["roofline"],
+    }
+    print(
+        f"[7] G genomes_1000(4, 3, 2, 2, 2): {out['G']['locations']} locations, "
+        f"{out['G']['execs']} execs, {out['G']['comms']} comms, float32 x {G_ELEMS}: interpreted "
+        f"{mi:.4f} ms (median {statistics.median(t_i):.4f}), fused {mf:.4f} ms (median "
+        f"{statistics.median(t_f):.4f}) a run, fused/interpreted {mf / mi:.3f}; "
+        f"fused stats {json.dumps(out['G']['fused'])}; roofline {f['roofline']}; {smi}"
+    )
+    out["launches"] = kops.launch_counts()
+    return out
 
 
 def nvidia_smi() -> str:
@@ -810,7 +1052,15 @@ def main() -> int:
     # -- 6. where a decode step's time goes ---------------------------------------------
     profile_decode(torch, model, params, prompts)
 
-    # -- 7. result ---------------------------------------------------------------------
+    # -- 7. the data plane: SWIRL's own main path ----------------------------------------
+    del model, params
+    torch.cuda.empty_cache()
+    dataplane = phase_dataplane(torch, smi)
+    if dataplane["launches"]["rmsnorm"] == 0:
+        fail("the data plane never launched the rmsnorm kernel")
+    print(f"[7] launches over the data-plane phase: {dataplane['launches']}")
+
+    # -- 8. result ---------------------------------------------------------------------
     src = "src/repro_torch/csrc/{}.cu"
     replaces = {
         "rmsnorm": "src/repro/kernels/rmsnorm.py:25",
@@ -825,7 +1075,9 @@ def main() -> int:
             "launches": counts[k], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["shape"], "rows": rows[k],
+            "launches_by_path": {"serve": counts[k], "dataplane": dataplane["launches"][k]},
         })
+    print(json.dumps({"dataplane": dataplane}))
     print(f"kernels: {', '.join(r['name'] for r in record)}; {time.monotonic() - t_start:.1f} s in all")
     print(smi)
     print(json.dumps({"kernels": record}))

@@ -1,7 +1,8 @@
 """repro_torch — the PyTorch/CUDA port of :mod:`repro`, for an NVIDIA H100.
 
 It mirrors the JAX package's module names (``models``, ``configs``,
-``kernels``, ``launch``) and imports nothing of it, nor ``jax``: what it needs
+``kernels``, ``launch``, and SWIRL's own ``core``, ``exec``, ``backends``,
+``api`` and ``swirl``) and imports nothing of it, nor ``jax``: what it needs
 of a JAX-free module it keeps as its own copy.  Entry points run on ``cuda``
 unless the caller passes ``device="cpu"``; asking for ``cuda`` on a machine
 without one raises.  Every TPU kernel of the reference is a hand-written
@@ -15,10 +16,16 @@ from importlib import import_module
 __version__ = "0.1.0"
 
 _SUBMODULES = (
+    "api",
+    "backends",
     "configs",
+    "core",
+    "exec",
     "kernels",
     "launch",
     "models",
+    "swirl",
+    "workflow",
 )
 
 

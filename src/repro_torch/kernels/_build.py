@@ -38,6 +38,16 @@ NVCC_FLAGS = (
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _lock = threading.Lock()
+
+
+class KernelError(RuntimeError):
+    """A kernel failed to build or to launch.
+
+    Its own class so that a caller that recovers from other errors (the
+    data plane falls back from a body that cannot be captured into a CUDA
+    graph) lets this one through.
+    """
+
 _libs: dict[str, ctypes.CDLL] = {}
 
 
@@ -45,7 +55,7 @@ def _nvcc() -> str:
     for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
         if cand and os.path.exists(cand):
             return cand
-    raise RuntimeError(
+    raise KernelError(
         "nvcc not found (looked on PATH and in /usr/local/cuda/bin): the "
         "port's CUDA kernels are built from source at first use"
     )
@@ -65,7 +75,7 @@ def build(names=KERNELS) -> dict[str, float]:
 
     Returns the seconds each build took (0.0 for one already built).  The
     compiler's output, ``-Xptxas -v`` included, is kept beside the library
-    as ``<name>.log``.  Raises ``RuntimeError`` naming every failed build.
+    as ``<name>.log``.  Raises :class:`KernelError` naming every failed build.
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     todo = {n: lib_path(n) for n in names if not lib_path(n).exists()}
@@ -94,7 +104,7 @@ def build(names=KERNELS) -> dict[str, float]:
             continue
         os.replace(tmp, out)  # atomic: a reader never sees half a library
     if failed:
-        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+        raise KernelError("kernel build failed: " + "\n".join(failed))
     return secs
 
 
@@ -117,7 +127,7 @@ def check(name: str, rc: int) -> None:
     """Raise if a launch returned a CUDA error (a refused launch never runs)."""
     if rc != 0:
         msg = getattr(load(name), f"{name}_error_string")(rc).decode()
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc} ({msg})")
+        raise KernelError(f"{name} kernel launch failed: CUDA error {rc} ({msg})")
 
 
 def stream_of(t: torch.Tensor) -> int:
