@@ -41,15 +41,40 @@ Phases, each of which exits nonzero on failure:
    version (fp32 2e-5); no fallbacks and 12 fused steps; 3 rmsnorm wrapper
    launches an interpreted run and 3 rmsnorm kernels in a profiled fused
    replay; a host sync in a body falls back; a second fused run leaves
-   the first store as it was.  Prints ms a run, fused / interpreted and
-   the roofline fraction beside the card's name and power limit.
+   the first store as it was.  At P-full, with the launch counts set to 0
+   just before and read just after, one interpreted run launches rmsnorm 3
+   times and a fresh fused executable's first run (warm-up and capture) 6.
+   Prints ms a run, fused / interpreted and the roofline fraction beside
+   the card's name and power limit.
+8. Trace, schedule and certify on the card: phase 7's P-ref, P-full and G,
+   interpreted and fused, lowered with ``trace=True``.  Stores must equal
+   the untraced run's (rtol 1e-5, atol 1e-6) and span schemas the port's
+   own CPU schema of the same plan; at P-full interpreted the exec spans
+   must sum to at least 0.9x the device time ``torch.profiler`` reports for
+   one untraced run; a profiled traced run may copy no more from the
+   device to the host than an untraced one; each run's Chrome trace is
+   written under ``build/traces/`` and validated; at P-full one traced
+   interpreted run and a fresh traced fused executable's first run, each
+   from launch counts of 0, launch rmsnorm 3 and 6 times.  G with
+   ``placement="auto"`` under the ``two-rack`` network runs on the card
+   with a store equal to the same scheduled plan on the CPU, and a small
+   1000 Genomes instance runs the whole chain ``trace -> optimize(certify
+   =True) -> schedule -> certify -> lower(trace=True, fuse=True) -> run``.
+   Prints traced / untraced ms a run per cell, ``Plan.profile(result)
+   .summary()`` for G, the cost model's median |duration ratio - 1| before
+   and after ``CostModel.from_profile``, the schedule's bytes saved, comms
+   and ms a run against the hand placement, and ``optimize(certify=True)``'s
+   states and host ms.
 
 ``python3 chip_smoke.py --rmsnorm-times ROOT`` only times the rmsnorm
-wrapper of the checkout at ROOT (see :func:`rmsnorm_times`).
+wrapper of the checkout at ROOT (see :func:`rmsnorm_times`), and
+``--dataplane-times ROOT`` only its untraced data plane (see
+:func:`dataplane_times`); ``--dataplane-compare A B`` runs that for the
+checkouts at A and B in alternating pairs (see :func:`dataplane_compare`).
 
 The line before the last is the kernels' JSON record (each kernel's
-launches on each path under ``launches_by_path``), the data plane's
-numbers one line above the card's name; the last line is
+launches on each path under ``launches_by_path``), the data plane's and
+the traced phase's numbers above the card's name; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 rest of the repository beside it, it exits nonzero and prints no result.
 """
@@ -92,9 +117,18 @@ F32_RATIO = 1.25  # kernel path's distance to the fp32 plain path over the bf16 
 # and at llama3.2-3b's width for a 2048-token prefill at batch 4, and the
 # 1000 Genomes instance at the paper's scale; 7 timed runs an arm after a warm one.
 DP_STEPS, DP_REPEATS = 12, 7
+DP_NORMS = len(range(0, DP_STEPS, 4))  # the rmsnorm steps of a run
 DP_SHAPES = {"P-ref": (64, 256), "P-full": (8192, 3072)}
 DP_RTOL, DP_ATOL = 1e-5, 1e-6  # the reference benchmark's fused-vs-interpreted gate
 G_ELEMS = 65536
+# Phase 8: the exec spans' least share of an untraced run's device time at
+# P-full interpreted, and the 1000 Genomes instance that the bisimulation
+# checker explores within its 20,000 states (the paper's scale has more).
+TRACE_COVER = 0.9
+CERT_GENOMES = dict(n=2, m=1, a=1, b=1, c=1)
+G_RULES = ("R1R2", "R3")
+# --dataplane-compare: the share of pairs that must agree in sign for a verdict.
+SIGN_AGREE = 0.9
 
 # NVIDIA data-sheet peaks, dense: device memory bytes/s; bf16 tensor-core,
 # and fp32 CUDA-core, operations/s.
@@ -696,13 +730,51 @@ def dp_time(torch, exe, feed) -> tuple[list[float], object]:
     return times, res
 
 
+def g_setup(torch, inst, device) -> tuple[dict, dict]:
+    """1000 Genomes payloads (float32 x G_ELEMS from seed 0) and bodies on
+    ``device``: ``s0`` hands out its inputs, every other step sums its
+    inputs into a vector of ones (``benchmarks/run.py``'s bodies)."""
+    rng = np.random.default_rng(0)
+    init = {("l^d", d): torch.from_numpy(rng.random(G_ELEMS).astype(np.float32)).to(device)
+            for d in sorted(inst.g("l^d"))}
+    fns = {}
+    for s in inst.workflow.steps:
+        outs = inst.out_data(s)
+        if s == "s0":
+            fns[s] = lambda i, outs=outs: {o: init[("l^d", o)] for o in outs}
+        else:
+            fns[s] = lambda i, outs=outs: {
+                o: sum(torch.sum(v) for v in i.values()) * torch.ones(G_ELEMS, device=device)
+                for o in outs
+            }
+    return init, fns
+
+
+def dp_time_pair(torch, exe_a, exe_b, feed) -> tuple[list[float], object, list[float], object]:
+    """:func:`dp_time` for two executables in turns (a b, b a, ...), so that
+    the host's drift falls on both alike."""
+    times = {0: [], 1: []}
+    res = {}
+    exes = (exe_a, exe_b)
+    for i in (0, 1):
+        exes[i].run(initial_payloads=dict(feed))
+    torch.cuda.synchronize()
+    for r in range(DP_REPEATS):
+        for i in ((0, 1) if r % 2 == 0 else (1, 0)):
+            t0 = time.perf_counter()
+            res[i] = exes[i].run(initial_payloads=dict(feed))
+            torch.cuda.synchronize()
+            times[i].append((time.perf_counter() - t0) * 1e3)
+    return times[0], res[0], times[1], res[1]
+
+
 def dp_stores_close(torch, name: str, got: dict, want: dict) -> None:
     for loc in want:
         for d, w in want[loc].items():
             g = got[loc][d]
             if not (isinstance(g, torch.Tensor) and g.shape == w.shape and bool(g.isfinite().all())
-                    and torch.allclose(g, w, rtol=DP_RTOL, atol=DP_ATOL)):
-                fail(f"{name}: fused store {loc}/{d} disagrees with the interpreted one")
+                    and torch.allclose(g, w.to(g.device), rtol=DP_RTOL, atol=DP_ATOL)):
+                fail(f"{name}: store {loc}/{d} disagrees")
 
 
 def dp_device_split(avgs, cuda) -> dict:
@@ -721,6 +793,27 @@ def dp_device_split(avgs, cuda) -> dict:
     return split
 
 
+def path_launches(torch, kops, label: str, interpreted, fused_first) -> tuple[dict, list]:
+    """The kernels' launches on one path of the data plane, each run driven
+    with the counts set to 0 just before it and read just after: one
+    interpreted run, and the first run of a fresh fused executable (its
+    warm-up and its capture each call the rmsnorm wrapper once a norm step;
+    later runs replay the graph and call no wrapper).  Fails unless rmsnorm
+    launched DP_NORMS and 2 * DP_NORMS times.  Returns the counts and the
+    two runs' results."""
+    counts, results = {}, []
+    for arm, run, want in (("interpreted_run", interpreted, DP_NORMS),
+                           ("fused_first_run", fused_first, 2 * DP_NORMS)):
+        torch.cuda.synchronize()
+        kops.reset_launch_counts()
+        results.append(run())
+        torch.cuda.synchronize()
+        counts[arm] = kops.launch_counts()
+        if counts[arm]["rmsnorm"] != want:
+            fail(f"{label}: {arm} launched rmsnorm {counts[arm]['rmsnorm']} times, not {want}")
+    return counts, results
+
+
 def phase_dataplane(torch, smi: str) -> dict:
     """Phase 7: SWIRL's own main path on the card — trace → optimize → lower
     ("torch") → compile → run, interpreted and fused (CUDA graphs).
@@ -730,7 +823,8 @@ def phase_dataplane(torch, smi: str) -> dict:
     and the rmsnorm kernels in a profiled replay; a body that cannot be
     captured (a host sync) must fall back and leave the card usable, and a
     second fused run must leave the first run's store as it was.  Returns
-    the numbers it prints, and the wrapper launches over the whole phase.
+    the numbers it prints, and the kernels' launches on the untraced path at
+    P-full (:func:`path_launches`).
     """
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -744,17 +838,21 @@ def phase_dataplane(torch, smi: str) -> dict:
     out = {"device": smi}
     plan = dp_pipeline(swirl, DistributedWorkflowInstance, make_workflow)
     mix = lambda v: 0.5 * v + 0.1 * torch.tanh(v)  # noqa: E731
-    kops.reset_launch_counts()
     for label, shape in DP_SHAPES.items():
         w = torch.ones(shape[1], device="cuda")
         fns = dp_fns(lambda v, w=w: kops.rmsnorm(v, w), mix)
         x = torch.from_numpy(np.random.default_rng(7).standard_normal(shape).astype(np.float32)).cuda()
         feed = {("l0", "d0"): x}
+        if label == "P-full":
+            out["launches"], _ = path_launches(
+                torch, kops, f"{label} untraced",
+                lambda: plan.lower("torch").compile(fns).run(initial_payloads=dict(feed)),
+                lambda: plan.lower("torch", fuse=True).compile(fns).run(initial_payloads=dict(feed)))
         interp = plan.lower("torch").compile(fns)
         fused = plan.lower("torch", fuse=True).compile(fns)
         t_i, res_i = dp_time(torch, interp, feed)
         t_f, res_f = dp_time(torch, fused, feed)
-        dp_stores_close(torch, label, res_f.data, res_i.data)
+        dp_stores_close(torch, f"{label} fused vs interpreted", res_f.data, res_i.data)
         for k in (0, 4, 8):  # the rmsnorm steps, against the plain version
             want = ref.rmsnorm_ref(res_i.data["l0"][f"d{k}"], w)
             for arm, res in (("interpreted", res_i), ("fused", res_f)):
@@ -763,8 +861,8 @@ def phase_dataplane(torch, smi: str) -> dict:
         before = kops.launch_counts()["rmsnorm"]
         interp.run(initial_payloads=dict(feed))
         per_run = kops.launch_counts()["rmsnorm"] - before
-        if per_run != 3:
-            fail(f"{label}: an interpreted run launched rmsnorm {per_run} times, not 3")
+        if per_run != DP_NORMS:
+            fail(f"{label}: an interpreted run launched rmsnorm {per_run} times, not {DP_NORMS}")
         f = res_f.stats["fused"]
         if f["fallbacks"] != 0 or f["fused_execs"] != DP_STEPS or f["fused_calls"] != 1:
             fail(f"{label}: fused stats {f}")
@@ -825,23 +923,11 @@ def phase_dataplane(torch, smi: str) -> dict:
 
     # G: 1000 Genomes, 9 locations on one card, comms between them.
     inst = genomes_1000(n=4, m=3, a=2, b=2, c=2)
-    rng = np.random.default_rng(0)
-    init = {("l^d", d): torch.from_numpy(rng.random(G_ELEMS).astype(np.float32)).cuda()
-            for d in sorted(inst.g("l^d"))}
-    fns = {}
-    for s in inst.workflow.steps:
-        outs = inst.out_data(s)
-        if s == "s0":
-            fns[s] = lambda i, outs=outs: {o: init[("l^d", o)] for o in outs}
-        else:
-            fns[s] = lambda i, outs=outs: {
-                o: sum(torch.sum(v) for v in i.values()) * torch.ones(G_ELEMS, device="cuda")
-                for o in outs
-            }
-    gplan = swirl.trace(inst).optimize(("R1R2", "R3"))
+    init, fns = g_setup(torch, inst, "cuda")
+    gplan = swirl.trace(inst).optimize(G_RULES)
     t_i, res_i = dp_time(torch, gplan.lower("torch").compile(fns), init)
     t_f, res_f = dp_time(torch, gplan.lower("torch", fuse=True).compile(fns), init)
-    dp_stores_close(torch, "G", res_f.data, res_i.data)
+    dp_stores_close(torch, "G fused vs interpreted", res_f.data, res_i.data)
     mi, mf = min(t_i), min(t_f)
     f = res_f.stats["fused"]
     out["G"] = {
@@ -857,7 +943,237 @@ def phase_dataplane(torch, smi: str) -> dict:
         f"{statistics.median(t_f):.4f}) a run, fused/interpreted {mf / mi:.3f}; "
         f"fused stats {json.dumps(out['G']['fused'])}; roofline {f['roofline']}; {smi}"
     )
-    out["launches"] = kops.launch_counts()
+    return out
+
+
+def device_ms_and_copies(torch, fn) -> tuple[float, int, int]:
+    """Device ms of one profiled call of ``fn``, its ``cudaMemcpy*`` runtime
+    calls (any direction) and its DtoH copy records.  The runtime calls are
+    the check: once the kernels' own library is loaded, the profiler keeps
+    recording kernels but no longer records memcpy activity on the card."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:  # as phase 7 profiles
+        fn()
+        torch.cuda.synchronize()
+    avgs = prof.key_averages()
+    calls = sum(e.count for e in avgs if e.key.startswith("cudaMemcpy"))
+    dtoh = sum(e.count for e in avgs if e.device_type == DeviceType.CUDA and "DtoH" in e.key)
+    return dp_device_split(avgs, DeviceType.CUDA)["total"][0], calls, dtoh
+
+
+def median_drift(report) -> float:
+    """The median |duration ratio - 1| of a ProfileReport's steps."""
+    return statistics.median(abs(d.duration_ratio - 1.0) for d in report.drifts)
+
+
+def phase_traced(torch, smi: str) -> dict:
+    """Phase 8: trace, schedule and certify on the card.
+
+    Each cell runs untraced and traced (interpreted and fused); the traced
+    store must equal the untraced one, the span schema the port's own CPU
+    schema of the same plan, and the spans must cover the device work; a
+    traced run may copy no more to the host than an untraced one; the
+    Chrome trace must validate.  Then the schedule (``placement="auto"``)
+    and the certificate on G, and the kernels' launches on the traced path
+    at P-full (:func:`path_launches`).  Returns the numbers it prints.
+    """
+    from repro_torch import swirl
+    from repro_torch.core.graph import DistributedWorkflowInstance, make_workflow
+    from repro_torch.core.translate import genomes_1000
+    from repro_torch.kernels import ops as kops
+    from repro_torch.obs import validate_chrome_trace
+    from repro_torch.sched import CostModel, NetworkModel
+
+    traces = ROOT / "build" / "traces"
+    traces.mkdir(parents=True, exist_ok=True)
+    out = {"device": smi, "cells": {}}
+    mix = lambda v: 0.5 * v + 0.1 * torch.tanh(v)  # noqa: E731
+
+    def cpu_schema(plan, fns, feed, fuse):
+        return plan.lower("torch", platform="cpu", trace=True, fuse=fuse).compile(fns).run(
+            initial_payloads=dict(feed)).profile.span_schema()
+
+    def traced_cell(label, plan, fns, feed, cpu_fns, cpu_feed):
+        cell = {}
+        for fuse in (False, True):
+            arm = "fused" if fuse else "interpreted"
+            plain_exe = plan.lower("torch", fuse=fuse).compile(fns)
+            traced_exe = plan.lower("torch", fuse=fuse, trace=True).compile(fns)
+            t_u, res_u, t_t, res_t = dp_time_pair(torch, plain_exe, traced_exe, feed)
+            if res_u.profile is not None or res_t.profile is None:
+                fail(f"{label} {arm}: a profile on the untraced run or none on the traced one")
+            dp_stores_close(torch, f"{label} {arm} traced vs untraced", res_t.data, res_u.data)
+            schema = res_t.profile.span_schema()
+            if schema != cpu_schema(plan, cpu_fns, cpu_feed, fuse):
+                fail(f"{label} {arm}: the span schema on the card differs from the CPU's")
+            dev_ms, copies_u, dtoh_u = device_ms_and_copies(
+                torch, lambda: plain_exe.run(initial_payloads=dict(feed)))
+            _, copies_t, dtoh_t = device_ms_and_copies(
+                torch, lambda: traced_exe.run(initial_payloads=dict(feed)))
+            if copies_t > copies_u or dtoh_t > dtoh_u:
+                fail(f"{label} {arm}: a traced run made {copies_t} memcpy calls ({dtoh_t} DtoH), "
+                     f"an untraced one {copies_u} ({dtoh_u})")
+            spans = res_t.profile.spans
+            execs = [sp for sp in spans if sp.kind == "exec"]
+            exec_ms = sum(sp.duration for sp in execs) * 1e3
+            seg_ms = sum({(sp.start, sp.end): sp.duration for sp in execs}.values()) * 1e3
+            path = traces / f"{label}-{arm}.json"
+            res_t.profile.save_chrome_trace(str(path))
+            validate_chrome_trace(json.loads(path.read_text()))
+            mu, mt = min(t_u), min(t_t)
+            cell[arm] = {
+                "untraced_ms": t_u, "traced_ms": t_t, "untraced_min_ms": mu, "traced_min_ms": mt,
+                "traced_over_untraced": mt / mu, "spans": len(spans), "exec_span_ms": exec_ms,
+                "traced_over_untraced_median": statistics.median(t_t) / statistics.median(t_u),
+                "distinct_exec_interval_ms": seg_ms, "untraced_device_ms": dev_ms,
+                "exec_spans_over_device": exec_ms / dev_ms if dev_ms else None,
+                "memcpy_calls_untraced": copies_u, "memcpy_calls_traced": copies_t,
+                "dtoh_untraced": dtoh_u, "dtoh_traced": dtoh_t, "chrome_trace": str(path.relative_to(ROOT)),
+            }
+            print(f"[8] {label} {arm}: untraced {mu:.4f} ms, traced {mt:.4f} ms a run (medians "
+                  f"{statistics.median(t_u):.4f}, {statistics.median(t_t):.4f}), traced/untraced "
+                  f"{mt / mu:.3f} (medians {cell[arm]['traced_over_untraced_median']:.3f}); {len(spans)} spans, exec spans {exec_ms:.4f} ms ({seg_ms:.4f} ms "
+                  f"of distinct intervals) over {dev_ms:.4f} ms of device time in an untraced run; "
+                  f"memcpy calls untraced {copies_u} (DtoH {dtoh_u}), traced {copies_t} ({dtoh_t}); schema equals the CPU's; "
+                  f"{path.relative_to(ROOT)} valid; {smi}")
+            if label == "P-full" and not fuse and exec_ms < TRACE_COVER * dev_ms:
+                fail(f"P-full interpreted: exec spans {exec_ms:.4f} ms cover less than "
+                     f"{TRACE_COVER} of the device's {dev_ms:.4f} ms")
+            del plain_exe, traced_exe, res_u, res_t
+        out["cells"][label] = cell
+        return cell
+
+    # The memcpy count must see a planted copy to the host.
+    probe = torch.ones(1024, device="cuda")
+    if device_ms_and_copies(torch, lambda: probe.cpu())[1] < 1:
+        fail("the profiler showed no memcpy call for a planted .cpu()")
+    plan = dp_pipeline(swirl, DistributedWorkflowInstance, make_workflow)
+    for label, shape in DP_SHAPES.items():
+        w = torch.ones(shape[1], device="cuda")
+        fns = dp_fns(lambda v, w=w: kops.rmsnorm(v, w), mix)
+        x = torch.from_numpy(np.random.default_rng(7).standard_normal(shape).astype(np.float32)).cuda()
+        w_cpu = torch.ones(shape[1])
+        cpu_fns = dp_fns(lambda v, w=w_cpu: kops.rmsnorm(v, w), mix)
+        cpu_feed = {("l0", "d0"): torch.randn(4, shape[1])}  # the schema depends on no value
+        feed = {("l0", "d0"): x}
+        traced_cell(label, plan, fns, feed, cpu_fns, cpu_feed)
+        if label == "P-full":
+            out["launches"], runs = path_launches(
+                torch, kops, f"{label} traced",
+                lambda: plan.lower("torch", trace=True).compile(fns).run(
+                    initial_payloads=dict(feed)),
+                lambda: plan.lower("torch", trace=True, fuse=True).compile(fns).run(
+                    initial_payloads=dict(feed)))
+            for res in runs:
+                n = sum(sp.kind == "exec" for sp in res.profile.spans)
+                if n != DP_STEPS:
+                    fail(f"{label}: a traced run recorded {n} exec spans, not {DP_STEPS}")
+            print(f"[8] {label} traced, launches from zero: {out['launches']}")
+        torch.cuda.empty_cache()
+
+    inst = genomes_1000(n=4, m=3, a=2, b=2, c=2)
+    init, fns = g_setup(torch, inst, "cuda")
+    init_cpu, fns_cpu = g_setup(torch, inst, "cpu")
+    gplan = swirl.trace(inst).optimize(G_RULES)
+    traced_cell("G", gplan, fns, init, fns_cpu, init_cpu)
+
+    # Predicted vs actual on G, and the cost model calibrated from one run.
+    exe = gplan.lower("torch", trace=True).compile(fns)
+    first = exe.run(initial_payloads=dict(init))
+    second = exe.run(initial_payloads=dict(init))
+    torch.cuda.synchronize()
+    report = gplan.profile(second)
+    model = CostModel.from_profile(first.profile)
+    calibrated = gplan.profile(second, costs=model)
+    if report.unmatched_actual or report.unmatched_predicted or not report.drifts:
+        fail(f"G: Plan.profile matched no or not all steps: {report.summary()}")
+    print("[8] G Plan.profile(result).summary():")
+    print(report.summary())
+    before, after = median_drift(report), median_drift(calibrated)
+    print(f"[8] G median |duration ratio - 1|: {before:.4f} with the default cost model, "
+          f"{after:.4f} after CostModel.from_profile of a first traced run; makespan predicted "
+          f"{calibrated.predicted_makespan * 1e3:.4f} ms calibrated ({report.predicted_makespan * 1e3:.4f} "
+          f"default) against {calibrated.actual_makespan * 1e3:.4f} ms actual")
+    out["G_profile"] = {
+        "median_drift_default": before, "median_drift_calibrated": after,
+        "predicted_makespan_ms": report.predicted_makespan * 1e3,
+        "calibrated_makespan_ms": calibrated.predicted_makespan * 1e3,
+        "actual_makespan_ms": calibrated.actual_makespan * 1e3,
+    }
+
+    # G scheduled: placement="auto" under two-rack, against the hand placement.
+    net = NetworkModel.preset("two-rack")
+    auto = gplan.lower("torch", placement="auto", network=net)
+    auto_traced = gplan.lower("torch", placement="auto", network=net, trace=True, fuse=True)
+    splan = auto.plan
+    srep = splan.schedule_report
+    cpu_rep = swirl.trace(genomes_1000(n=4, m=3, a=2, b=2, c=2)).optimize(G_RULES).schedule(
+        NetworkModel.preset("two-rack"))
+    if (cpu_rep.fingerprint(), cpu_rep.schedule_report.bytes_saved_frac) != (
+            splan.fingerprint(), srep.bytes_saved_frac):
+        fail("G: the schedule is not deterministic")
+    t_hand, res_hand, t_auto, res_auto = dp_time_pair(
+        torch, gplan.lower("torch").compile(fns), auto.compile(fns), init)
+    res_at = auto_traced.compile(fns).run(initial_payloads=dict(init))
+    res_cpu = splan.lower("torch", platform="cpu").compile(fns_cpu).run(
+        initial_payloads=dict(init_cpu))
+    dp_stores_close(torch, "G auto on cuda vs cpu", res_auto.data, res_cpu.data)
+    dp_stores_close(torch, "G auto traced fused vs untraced", res_at.data, res_auto.data)
+    if res_at.profile.span_schema() != cpu_schema(splan, fns_cpu, init_cpu, True):
+        fail("G auto: the span schema on the card differs from the CPU's")
+    devices = set(res_auto.stats["devices"].values())
+    if devices != {"cuda:0"}:
+        fail(f"G auto ran on {devices}")
+    out["G_auto"] = {
+        "bytes_saved_frac": srep.bytes_saved_frac, "makespan_speedup": srep.makespan_speedup,
+        "comms": res_auto.stats["comms"], "comms_hand": res_hand.stats["comms"],
+        "auto_min_ms": min(t_auto), "hand_min_ms": min(t_hand), "auto_ms": t_auto, "hand_ms": t_hand,
+        "search_ms": srep.search_seconds * 1e3,
+    }
+    print(f"[8] G placement='auto' two-rack: bytes_saved_frac {srep.bytes_saved_frac:.4f} (the CPU's "
+          f"{cpu_rep.schedule_report.bytes_saved_frac:.4f}), predicted makespan x"
+          f"{srep.makespan_speedup:.3f}; comms {res_auto.stats['comms']} (hand placement "
+          f"{res_hand.stats['comms']}); {min(t_auto):.4f} ms a run (hand {min(t_hand):.4f}; medians "
+          f"{statistics.median(t_auto):.4f}, {statistics.median(t_hand):.4f}); search "
+          f"{srep.search_seconds * 1e3:.1f} ms; store equals the CPU's; {smi}")
+
+    # Certification: its host cost, and the whole chain on the card.
+    certs = {}
+    for label, raw in (("pipeline", swirl.trace(plan.instance)),
+                       ("genomes-small", swirl.trace(genomes_1000(**CERT_GENOMES)))):
+        rules = ("R1R2",) if label == "pipeline" else G_RULES
+        t0 = time.perf_counter()
+        c = raw.optimize(rules, certify=True).certificate
+        certs[label] = {"equivalent": c.equivalent, "states_original": c.states_original,
+                        "states_optimized": c.states_optimized,
+                        "host_ms": (time.perf_counter() - t0) * 1e3}
+        print(f"[8] optimize(certify=True) on {label}: {certs[label]}")
+    if not (certs["pipeline"]["equivalent"] and certs["genomes-small"]["equivalent"]):
+        fail(f"certification failed: {certs}")
+    out["certify"] = certs
+    small = genomes_1000(**CERT_GENOMES)
+    s_init, s_fns = g_setup(torch, small, "cuda")
+    s_init_cpu, s_fns_cpu = g_setup(torch, small, "cpu")
+    t0 = time.perf_counter()
+    chain = (swirl.trace(small).optimize(G_RULES, certify=True)
+             .schedule(NetworkModel.preset("two-rack")).certify())
+    chain_ms = (time.perf_counter() - t0) * 1e3
+    res = chain.lower("torch", trace=True, fuse=True).compile(s_fns).run(
+        initial_payloads=dict(s_init))
+    want = chain.lower("torch", platform="cpu").compile(s_fns_cpu).run(
+        initial_payloads=dict(s_init_cpu))
+    dp_stores_close(torch, "genomes-small certified chain, cuda vs cpu", res.data, want.data)
+    if not chain.certificate.equivalent or res.profile is None:
+        fail("the certified chain lost its certificate or its profile")
+    print(f"[8] trace -> optimize(certify=True) -> schedule(two-rack) -> certify -> lower(torch, "
+          f"trace, fuse) -> run on genomes_1000{tuple(CERT_GENOMES.values())}: certificate "
+          f"{dataclasses.astuple(chain.certificate)}, {chain_ms:.1f} ms of host time to certify and "
+          f"schedule; {len(res.profile.spans)} spans; store equals the CPU's")
+    out["chain"] = {"certificate": dataclasses.astuple(chain.certificate), "host_ms": chain_ms,
+                    "spans": len(res.profile.spans)}
     return out
 
 
@@ -896,10 +1212,82 @@ def rmsnorm_times(torch, root: Path) -> int:
     return 0
 
 
+def dataplane_times(torch, root: Path) -> int:
+    """``--dataplane-times ROOT``: the untraced data plane of the port in
+    ``ROOT`` (phase 7's P-ref and P-full, interpreted and fused), DP_REPEATS
+    runs an arm after a warm one.  Run it for two checkouts in turns (A, B,
+    B, A) to compare them on one card; it prints one JSON line."""
+    sys.path.insert(0, str(root / "src"))
+    from repro_torch import swirl
+    from repro_torch.core.graph import DistributedWorkflowInstance, make_workflow
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import ops as kops
+
+    _build.build(("rmsnorm",))
+    plan = dp_pipeline(swirl, DistributedWorkflowInstance, make_workflow)
+    mix = lambda v: 0.5 * v + 0.1 * torch.tanh(v)  # noqa: E731
+    res = {"root": str(root), "device": nvidia_smi()}
+    for label, shape in DP_SHAPES.items():
+        w = torch.ones(shape[1], device="cuda")
+        fns = dp_fns(lambda v, w=w: kops.rmsnorm(v, w), mix)
+        x = torch.from_numpy(np.random.default_rng(7).standard_normal(shape).astype(np.float32)).cuda()
+        for fuse in (False, True):
+            t, _ = dp_time(torch, plan.lower("torch", fuse=fuse).compile(fns), {("l0", "d0"): x})
+            res[f"{label} {'fused' if fuse else 'interpreted'}"] = {
+                "min_ms": min(t), "median_ms": statistics.median(t), "ms": t}
+    print(json.dumps(res))
+    return 0
+
+
+def dataplane_compare(a: Path, b: Path, pairs: int) -> int:
+    """``--dataplane-compare A B``: ``--dataplane-times`` of the checkouts at
+    A (the parent) and B (the change), one process each, in ``pairs`` pairs
+    whose order alternates (A B, B A, ...).  For each cell it prints the
+    per-process medians of both sides, the ratio B / A of each pair's
+    medians, and a verdict: "slower" or "faster" when at least
+    SIGN_AGREE of the pairs agree in sign (a two-sided sign test at
+    p < 0.05 for 10 pairs), else "unresolved".  One JSON line."""
+    runs = {"A": [], "B": []}
+    for i in range(pairs):
+        for side in (("A", "B") if i % 2 == 0 else ("B", "A")):
+            root = a if side == "A" else b
+            p = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--dataplane-times",
+                                str(root)], capture_output=True, text=True, timeout=600)
+            if p.returncode != 0:
+                print(p.stderr[-4000:], file=sys.stderr)
+                fail(f"--dataplane-times {root} exited {p.returncode}")
+            runs[side].append(json.loads(p.stdout.strip().splitlines()[-1]))
+    res = {"A": str(a), "B": str(b), "pairs": pairs, "device": runs["A"][0]["device"], "cells": {}}
+    for cell in [k for k in runs["A"][0] if k not in ("root", "device")]:
+        med = {s: [r[cell]["median_ms"] for r in runs[s]] for s in runs}
+        mins = {s: [r[cell]["min_ms"] for r in runs[s]] for s in runs}
+        ratios = [y / x for x, y in zip(med["A"], med["B"])]
+        slower = sum(r > 1 for r in ratios)
+        faster = sum(r < 1 for r in ratios)
+        verdict = ("slower" if slower >= SIGN_AGREE * pairs else
+                   "faster" if faster >= SIGN_AGREE * pairs else "unresolved")
+        res["cells"][cell] = {
+            "A_median_ms": med["A"], "B_median_ms": med["B"], "A_min_ms": mins["A"],
+            "B_min_ms": mins["B"], "ratio_of_medians": ratios,
+            "median_ratio": statistics.median(ratios), "pairs_slower": slower,
+            "pairs_faster": faster, "verdict": verdict,
+        }
+        print(f"{cell}: median of per-process medians A {statistics.median(med['A']):.4f} ms, "
+              f"B {statistics.median(med['B']):.4f} ms; B/A median {statistics.median(ratios):.4f}, "
+              f"{slower} of {pairs} pairs slower, {faster} faster: {verdict}")
+    print(json.dumps(res))
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rmsnorm-times", metavar="ROOT", type=Path,
                     help="only time the rmsnorm wrapper of the checkout at ROOT")
+    ap.add_argument("--dataplane-times", metavar="ROOT", type=Path,
+                    help="only time the untraced data plane of the checkout at ROOT")
+    ap.add_argument("--dataplane-compare", metavar=("A", "B"), type=Path, nargs=2,
+                    help="--dataplane-times of checkouts A and B in alternating pairs")
+    ap.add_argument("--pairs", type=int, default=10, help="pairs for --dataplane-compare")
     opts = ap.parse_args()
     try:
         import torch
@@ -909,12 +1297,18 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         return 1
-    root = ROOT if opts.rmsnorm_times is None else opts.rmsnorm_times.resolve()
+    if opts.dataplane_compare is not None:
+        a, b = (r.resolve() for r in opts.dataplane_compare)
+        return dataplane_compare(a, b, opts.pairs)
+    other = opts.rmsnorm_times or opts.dataplane_times
+    root = ROOT if other is None else other.resolve()
     if not (root / "src" / "repro_torch" / "csrc").is_dir():
         print(f"chip_smoke: no src/repro_torch in {root}", file=sys.stderr)
         return 1
     if opts.rmsnorm_times is not None:
         return rmsnorm_times(torch, root)
+    if opts.dataplane_times is not None:
+        return dataplane_times(torch, root)
     sys.path.insert(0, str(ROOT / "src"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1056,11 +1450,13 @@ def main() -> int:
     del model, params
     torch.cuda.empty_cache()
     dataplane = phase_dataplane(torch, smi)
-    if dataplane["launches"]["rmsnorm"] == 0:
-        fail("the data plane never launched the rmsnorm kernel")
-    print(f"[7] launches over the data-plane phase: {dataplane['launches']}")
+    print(f"[7] P-full untraced, launches from zero: {dataplane['launches']}")
 
-    # -- 8. result ---------------------------------------------------------------------
+    # -- 8. trace, schedule and certify on the card ----------------------------------------
+    torch.cuda.empty_cache()
+    traced = phase_traced(torch, smi)
+
+    # -- 9. result ---------------------------------------------------------------------
     src = "src/repro_torch/csrc/{}.cu"
     replaces = {
         "rmsnorm": "src/repro/kernels/rmsnorm.py:25",
@@ -1075,9 +1471,14 @@ def main() -> int:
             "launches": counts[k], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["shape"], "rows": rows[k],
-            "launches_by_path": {"serve": counts[k], "dataplane": dataplane["launches"][k]},
+            "launches_by_path": {
+                "serve": counts[k],
+                **{path: {arm: c[k] for arm, c in res["launches"].items()}
+                   for path, res in (("dataplane", dataplane), ("traced", traced))},
+            },
         })
     print(json.dumps({"dataplane": dataplane}))
+    print(json.dumps({"traced": traced}))
     print(f"kernels: {', '.join(r['name'] for r in record)}; {time.monotonic() - t_start:.1f} s in all")
     print(smi)
     print(json.dumps({"kernels": record}))

@@ -22,9 +22,13 @@ End to end::
     )
 
 The one backend is ``torch``; it runs on ``cuda`` unless lowered with
-``platform="cpu"``.  Not ported yet, and refused by name: ``certify=True``
-(the bisimulation checker), ``placement="auto"`` and ``Plan.schedule`` (the
-placement scheduler), ``trace=`` (span tracing), and checkpoint/restore.
+``platform="cpu"``.  As in the reference, every stage is a value: a
+:class:`Plan` can be optimised twice with different rule sets, certified
+against the original system with the weak-barbed-bisimulation checker of
+:mod:`repro_torch.core.bisim` (Thm. 1), scheduled against a network cost
+model (:mod:`repro_torch.sched`), lowered with ``trace=True`` and aligned
+against its predicted timeline (:meth:`Plan.profile`).  Checkpoint/restore
+is not ported (the reference's ``jax`` backend has none either).
 """
 
 from __future__ import annotations
@@ -51,6 +55,8 @@ from repro_torch.core.optimizer import REWRITE_RULES, OptimizationStats
 from repro_torch.core.parser import parse_system
 from repro_torch.core.syntax import Exec, WorkflowSystem, actions
 from repro_torch.core.translate import DagTranslator, SWIRLTranslator
+from repro_torch.sched import CostModel, NetworkModel, SizeModel, auto_placement
+from repro_torch.sched.report import ScheduleReport
 
 __all__ = [
     "trace",
@@ -58,6 +64,7 @@ __all__ = [
     "Lowered",
     "Executable",
     "AppliedRewrite",
+    "BisimCertificate",
     "ExecutionResult",
     "ConcurrentRunError",
     "clear_compile_cache",
@@ -148,17 +155,18 @@ def _traced(inst: DistributedWorkflowInstance) -> "Plan":
 # Compile cache — re-derivations keyed by (instance hash, rules, placement)
 # ---------------------------------------------------------------------------
 #
-# Placement overrides re-derive the plan (re-encode under the new M,
-# re-apply the recorded rewrites).  Repeating the derivation for every
-# ``lower()`` of the same (instance, rules, placement) triple is pure waste
-# at 10k-step scale, so the outcome is cached in a small LRU.
+# Scheduling and placement overrides re-derive the plan (re-encode under the
+# new M, re-apply the recorded rewrites).  The search that *chose* the
+# placement already proved the result; repeating the derivation for every
+# ``lower()``/``schedule()`` of the same (instance, rules, placement) triple
+# is pure waste at 10k-step scale, so the outcome is cached in a small LRU.
 # Everything stored is immutable and shared safely between plans.
 
 _DERIVE_CACHE: "OrderedDict[tuple, tuple]" = OrderedDict()
 #: Small on purpose: each entry pins a full rewritten system plus its
 #: pre-optimisation origin, which at 10k-step scale is tens of MB.  The
 #: cache exists to absorb repeated derivations of the *same* plan
-#: (lower → explain chains), not to memoise sweeps.
+#: (schedule → lower → explain chains), not to memoise sweeps.
 _DERIVE_CACHE_MAX = 32
 #: Plans are immutable and freely shared across threads, so the cache they
 #: all consult must be too: every get/move_to_end/insert/evict happens
@@ -213,7 +221,10 @@ def _placement_key(mapping: Mapping[str, Sequence[str]]) -> tuple:
 
 
 def _derive_plan(
-    inst: DistributedWorkflowInstance, rules: Sequence[str]
+    inst: DistributedWorkflowInstance,
+    rules: Sequence[str],
+    *,
+    schedule_report: "ScheduleReport | None" = None,
 ) -> "Plan":
     """Encode ``inst`` and apply ``rules``, through the compile cache."""
     t0 = time.perf_counter()
@@ -232,11 +243,14 @@ def _derive_plan(
             instance=inst,
             origin=origin,
             rewrites=rewrites,
+            schedule_report=schedule_report,
             timings=(("derive (cached)", time.perf_counter() - t0),),
         )
     plan = _traced(inst)
     if rules:
         plan = plan.optimize(rules)
+    if schedule_report is not None:
+        plan = replace(plan, schedule_report=schedule_report)
     with _DERIVE_CACHE_LOCK:
         _DERIVE_CACHE[key] = (plan.system, plan.origin, plan.rewrites)
         while len(_DERIVE_CACHE) > _DERIVE_CACHE_MAX:
@@ -259,6 +273,16 @@ class AppliedRewrite:
 
 
 @dataclass(frozen=True)
+class BisimCertificate:
+    """Mechanical Thm.-1 evidence that optimisation preserved behaviour."""
+
+    equivalent: bool
+    method: str = "weak-barbed-bisimulation"
+    states_original: int = 0
+    states_optimized: int = 0
+
+
+@dataclass(frozen=True)
 class Plan:
     """A traced SWIRL system, optionally rewritten, ready to lower.
 
@@ -270,6 +294,8 @@ class Plan:
     instance: DistributedWorkflowInstance | None = None
     origin: WorkflowSystem | None = None  # pre-optimisation system
     rewrites: tuple[AppliedRewrite, ...] = ()
+    certificate: BisimCertificate | None = None
+    schedule_report: ScheduleReport | None = None
     #: Per-phase wall-clock durations ``(label, seconds)`` in the order the
     #: phases ran — rendered by :meth:`explain`.
     timings: tuple[tuple[str, float], ...] = ()
@@ -280,14 +306,16 @@ class Plan:
         rules: Sequence[str] = ("R1R2",),
         *,
         certify: bool = False,
+        max_states: int = 20_000,
     ) -> "Plan":
         """Apply rewriting rules (Def. 15 and beyond) in order.
 
         ``rules`` names entries of
         :data:`repro_torch.core.optimizer.REWRITE_RULES` — ``"R1R2"`` is the
         paper's local+duplicate communication removal, ``"R3"`` the
-        spatial-constraint deduplication.  ``certify=True`` (the reference's
-        weak-barbed-bisimulation certificate) is not ported yet and raises.
+        spatial-constraint deduplication.  With ``certify=True`` the result
+        carries a :class:`BisimCertificate` checking ``W ≈ ⟦W⟧`` exactly
+        (exponential in system size — keep certified systems small).
 
         Rules with a flat-engine implementation run as one pipeline over
         the flat IR (one flatten, one tree reconstruction for the whole
@@ -295,12 +323,6 @@ class Plan:
         """
         from repro_torch.core.flat import FLAT_RULES, rewrite_flat_pipeline
 
-        if certify:
-            raise NotImplementedError(
-                "certify=True needs the bisimulation checker (core/bisim.py, "
-                "core/semantics.py), which the port has not ported yet: "
-                "ROADMAP queue A"
-            )
         for rule in rules:
             if rule not in REWRITE_RULES:
                 raise ValueError(
@@ -329,13 +351,39 @@ class Plan:
                     (f"rewrite:{rule}", time.perf_counter() - t0)
                 )
                 applied.append(AppliedRewrite(rule, stats))
-        return replace(
+        plan = replace(
             self,
             system=system,
             origin=self.origin if self.origin is not None else self.system,
             rewrites=tuple(applied),
+            certificate=None,
             timings=tuple(timings),
         )
+        return plan.certify(max_states=max_states) if certify else plan
+
+    def certify(self, *, max_states: int = 20_000) -> "Plan":
+        """Attach Thm.-1 evidence that this plan ≈ its unoptimised origin."""
+        from repro_torch.core.bisim import weak_barbed_bisimilar
+        from repro_torch.core.semantics import reachable_states
+
+        origin = self.origin if self.origin is not None else self.system
+        cert = BisimCertificate(
+            equivalent=weak_barbed_bisimilar(
+                origin, self.system, max_states=max_states
+            ),
+            states_original=len(
+                reachable_states(origin, max_states=max_states)
+            ),
+            states_optimized=len(
+                reachable_states(self.system, max_states=max_states)
+            ),
+        )
+        if not cert.equivalent:
+            raise AssertionError(
+                "optimisation broke weak barbed bisimilarity — this is a "
+                "bug in the rewrite rules"
+            )
+        return replace(self, certificate=cert)
 
     # -- aggregates ---------------------------------------------------------
     @property
@@ -426,7 +474,7 @@ class Plan:
         if cached is not None and cached[0] == _CACHE_GENERATION:
             return cached[1]
         t0 = time.perf_counter()
-        program = lower_system(self.system)
+        program = lower_system(self.system, schedule=self.schedule_report)
         self._record_phase("lower", time.perf_counter() - t0)
         self.__dict__["_exec_program"] = (_CACHE_GENERATION, program)
         return program
@@ -446,22 +494,100 @@ class Plan:
         extra = self.__dict__.get("_phase_timings") or {}
         return self.timings + tuple(extra.items())
 
+    # -- scheduling ---------------------------------------------------------
+    def schedule(
+        self,
+        network: NetworkModel | None = None,
+        *,
+        objective: str = "makespan",
+        steps: Mapping[str, StepFn | StepMeta] | None = None,
+        sizes: SizeModel | None = None,
+        costs: CostModel | None = None,
+        refine: bool = True,
+        pin: Sequence[str] = (),
+        max_evals: int | None = None,
+    ) -> "Plan":
+        """Choose ``M(s)`` against a network cost model (``repro_torch.sched``).
+
+        Runs critical-path greedy placement plus local-search refinement,
+        re-encodes the instance under the chosen mapping, and re-runs the
+        optimiser (the recorded rewrite rules, or the paper's ``R1R2`` for
+        a never-optimised plan) — the scheduler co-locates producers with
+        consumers, which turns remote sends into local ones that R1 then
+        deletes.  ``objective`` is ``"makespan"`` (simulated completion
+        time; default) or ``"bytes"`` (cross-location traffic).
+
+        Size/cost estimates come from ``sizes=``/``costs=`` or are
+        harvested from ``steps=`` (the same registry handed to
+        :meth:`Lowered.compile` — :class:`StepMeta.output_bytes` and
+        :class:`StepMeta.expected_seconds`).  Spatially-constrained steps
+        (``|M(s)| > 1``) and steps named in ``pin=`` are never moved.
+
+        The result carries a :class:`~repro_torch.sched.ScheduleReport`
+        (``plan.schedule_report``, rendered by :meth:`explain`) comparing
+        the chosen placement against round-robin.
+        """
+        if self.instance is None:
+            raise ValueError(
+                "schedule() needs a Plan traced from a front-end instance "
+                "(not raw .swirl text or a WorkflowSystem)"
+            )
+        metas = {
+            name: spec
+            for name, spec in (steps or {}).items()
+            if isinstance(spec, StepMeta)
+        }
+        if sizes is None:
+            sizes = SizeModel.from_step_metas(metas) if metas else SizeModel()
+        if costs is None:
+            costs = CostModel.from_step_metas(metas) if metas else CostModel()
+        # Re-run the optimiser on the scheduled plan: co-location turns
+        # remote sends into local ones that R1 deletes.  The same rule list
+        # is passed to the search so candidates are scored on exactly the
+        # system that will be lowered; a never-optimised plan gets the
+        # paper's default rule set.
+        rules = tuple(r.rule for r in self.rewrites) or ("R1R2",)
+        t0 = time.perf_counter()
+        report = auto_placement(
+            self.instance,
+            network,
+            objective=objective,
+            sizes=sizes,
+            costs=costs,
+            refine=refine,
+            pin=pin,
+            rules=rules,
+            max_evals=max_evals,
+        )
+        sched_dt = time.perf_counter() - t0
+        inst = replace(self.instance, mapping=dict(report.placement))
+        plan = _derive_plan(inst, rules, schedule_report=report)
+        return replace(
+            plan, timings=(("schedule", sched_dt),) + plan.timings
+        )
+
     # -- lowering -----------------------------------------------------------
     def lower(
         self,
         backend: str = "torch",
         *,
         placement: Mapping[str, Sequence[str]] | str | None = None,
+        network: NetworkModel | None = None,
+        objective: str = "makespan",
         **options: Any,
     ) -> "Lowered":
         """Select an execution backend (and optionally re-place steps).
 
         ``placement`` overrides the step→locations mapping ``M`` and
         re-derives the plan (re-encode + re-apply the recorded rewrites).
-        ``placement="auto"`` (the reference's cost-model scheduler) is not
-        ported yet and raises.  Backend-specific ``options`` (the ``torch``
-        backend's ``devices``/``platform``/``fuse``/``max_rounds``, and
-        ``policy``) are validated here, before any execution.
+        ``placement="auto"`` instead runs the cost-model-driven scheduler
+        (:meth:`schedule`) against ``network=`` (default: the ``uniform``
+        preset) and ``objective=``.  Backend-specific ``options`` (the
+        ``torch`` backend's ``devices``/``platform``/``fuse``/``max_rounds``,
+        and ``trace``/``policy``) are validated here, before any execution;
+        a schedule report, when present, is handed down as the uniform
+        ``schedule`` option (the ``torch`` backend maps each network group's
+        locations onto one contiguous block of devices).
         """
         if isinstance(placement, str):
             if placement != "auto":
@@ -469,12 +595,17 @@ class Plan:
                     "placement must be a mapping or the string 'auto', "
                     f"got {placement!r}"
                 )
-            raise NotImplementedError(
-                "placement='auto' needs the placement scheduler (repro.sched), "
-                "which the port has not ported yet: ROADMAP queue A"
-            )
-        plan = self._replaced(placement) if placement else self
+            plan = self.schedule(network, objective=objective)
+        else:
+            if network is not None or objective != "makespan":
+                raise TypeError(
+                    "network=/objective= are only meaningful with "
+                    "placement='auto' (or use Plan.schedule directly)"
+                )
+            plan = self._replaced(placement) if placement else self
         b = get_backend(backend)
+        if plan.schedule_report is not None:
+            options.setdefault("schedule", plan.schedule_report)
         b.validate_options(options)
         return Lowered(plan=plan, backend_name=backend, options=dict(options))
 
@@ -509,24 +640,44 @@ class Plan:
         )
         return _derive_plan(inst, tuple(r.rule for r in self.rewrites))
 
-    # -- not ported yet -----------------------------------------------------
-    def schedule(self, *args: Any, **kwargs: Any) -> "Plan":
-        """The reference's cost-model placement (``repro.sched``): not
-        ported yet."""
-        raise NotImplementedError(
-            "Plan.schedule needs the placement scheduler (repro.sched), which "
-            "the port has not ported yet: ROADMAP queue A"
-        )
-
-    def profile(self, *args: Any, **kwargs: Any) -> Any:
-        """The reference's predicted-vs-actual alignment (``repro.obs``):
-        not ported yet."""
-        raise NotImplementedError(
-            "Plan.profile needs run tracing (repro.obs), which the port has "
-            "not ported yet: ROADMAP queue A"
-        )
-
     # -- introspection ------------------------------------------------------
+    def profile(
+        self,
+        result: Any,
+        *,
+        network: NetworkModel | None = None,
+        sizes: SizeModel | None = None,
+        costs: CostModel | None = None,
+        exec_slots: int | None = None,
+    ) -> "Any":
+        """Align a traced run against this plan's predicted timeline.
+
+        ``result`` is a traced :class:`~repro_torch.backends.base.ExecutionResult`
+        (from an Executable lowered with ``trace=True``) or a bare
+        :class:`repro_torch.obs.RunProfile`.  Replays the plan through the sched
+        simulator under the given models (defaults match
+        :func:`repro_torch.sched.simulate`) and returns a
+        :class:`repro_torch.obs.ProfileReport` with per-step predicted-vs-actual
+        drift and achieved-vs-predicted cross-location bytes.
+        """
+        from repro_torch.obs.profile import RunProfile, align
+
+        prof = getattr(result, "profile", result)
+        if not isinstance(prof, RunProfile):
+            raise ValueError(
+                "result carries no RunProfile — run it on an Executable "
+                'lowered with trace=True (e.g. plan.lower("torch", '
+                "trace=True))"
+            )
+        return align(
+            self,
+            prof,
+            network=network,
+            sizes=sizes,
+            costs=costs,
+            exec_slots=exec_slots,
+        )
+
     def explain(self) -> str:
         """Human-readable report: trace, rewrites applied, placement."""
         lines = ["== SWIRL plan =="]
@@ -549,6 +700,17 @@ class Plan:
                 f"(local {r.stats.removed_local}, "
                 f"duplicate {r.stats.removed_duplicate})"
             )
+        if self.certificate is not None:
+            c = self.certificate
+            lines.append(
+                f"  certificate: {c.method} equivalent={c.equivalent} "
+                f"({c.states_original} -> {c.states_optimized} states)"
+            )
+        if self.schedule_report is not None:
+            lines.append("")
+            lines.append("-- schedule --")
+            for row in self.schedule_report.summary().splitlines():
+                lines.append(f"  {row}")
         lines.append("")
         lines.append("-- timings --")
         timings = self.phase_timings()
@@ -677,9 +839,17 @@ class Executable:
     ) -> ExecutionResult:
         self._enter_run("run")
         try:
-            return self.program.run(initial_payloads)
+            return self._with_phases(self.program.run(initial_payloads))
         finally:
             self._exit_run()
+
+    def _with_phases(self, result: ExecutionResult) -> ExecutionResult:
+        """Stamp a traced result's profile with the plan's phase timings."""
+        if result.profile is not None:
+            result.profile = result.profile.with_phases(
+                self.plan.phase_timings()
+            )
+        return result
 
     def run_many(
         self,
@@ -700,9 +870,12 @@ class Executable:
         """
         self._enter_run("run_many batch")
         try:
-            return self.program.run_many(
-                list(inputs), max_concurrent=max_concurrent
-            )
+            return [
+                self._with_phases(r)
+                for r in self.program.run_many(
+                    list(inputs), max_concurrent=max_concurrent
+                )
+            ]
         finally:
             self._exit_run()
 

@@ -47,8 +47,8 @@ class ExecutionResult:
     backend: str
     data: dict[str, dict[str, Any]]
     stats: Any = None
-    #: A run profile when the run was traced; the port has no tracing yet,
-    #: so it stays ``None``.
+    #: :class:`repro_torch.obs.RunProfile` when the run was traced
+    #: (``lower(..., trace=True)``), else ``None``.
     profile: Any = None
 
     def payload(self, location: str, data: str) -> Any:
@@ -204,9 +204,12 @@ class Backend(ABC):
             )
 
     def known_options(self) -> frozenset[str]:
-        # "policy" is the uniform :class:`repro_torch.exec.policy.FaultPolicy`
-        # — every backend honors retry/timeout/deadline through the shared
-        # interp helpers.  The reference's "schedule" (placement scheduler)
-        # and "trace" (span recorder) options wait for their own slices of
-        # the port, so they are refused here as unknown options.
-        return frozenset({"policy"})
+        # "schedule" is the uniform hand-down of the placement scheduler's
+        # ScheduleReport (repro_torch.sched): Plan.lower attaches it for every
+        # backend; backends may consult it (the torch backend maps each
+        # network group onto a contiguous device block) or ignore it.
+        # "trace" turns on the repro_torch.obs span recorder and attaches a
+        # RunProfile to every result.  "policy" is the uniform
+        # :class:`repro_torch.exec.policy.FaultPolicy` — every backend honors
+        # retry/timeout/deadline through the shared interp helpers.
+        return frozenset({"schedule", "trace", "policy"})

@@ -3,8 +3,10 @@
 The counterpart of the reference's ``jax`` backend
 (``repro/backends/jax_backend.py``).  Each SWIRL location is pinned to a
 device (round-robin over ``cuda:0..n-1``, or an explicit ``devices=``
-option; ``platform="cpu"`` puts every location on the CPU).  The compiled
-artifact then interprets the per-location program IR deterministically:
+option; ``platform="cpu"`` puts every location on the CPU; a ``schedule=``
+report keeps each network group's locations on one contiguous block of
+devices).  The compiled artifact then interprets the per-location program
+IR deterministically:
 
 * an enabled ``ExecOp`` runs the step function with its inputs resident on
   the leader location's device and replicates ``Out^D(s)`` onto every
@@ -21,6 +23,18 @@ workflows.
 With ``fuse=True`` each straight-line EXEC run on one location is captured
 once into a CUDA graph (``torch.cuda.CUDAGraph``) and replayed on later
 calls — the card's counterpart of ``jax.jit`` on a segment.
+
+With ``trace=True`` every comm, exec fire (interpreted or fused) and
+policy retry is recorded as a span (:mod:`repro_torch.obs`) in the
+reference backends' schema, and the result carries a
+:class:`~repro_torch.obs.RunProfile`.  A host-clock span around a CUDA
+launch would measure the enqueue, not the work, so a traced run
+synchronises the span's device before it stamps the span's end (an exec's
+leader device; both devices of a comm between two, none for a comm within
+one device, which queues no work): each span covers its own device work,
+at the price of the overlap between the host and the card (the ratio of
+traced to untraced time is in ``PERF.md``).  An untraced run reads no
+clock and synchronises nothing on behalf of tracing.
 """
 
 from __future__ import annotations
@@ -43,6 +57,9 @@ from repro_torch.exec.interp import (
     StepGuard,
     enabled_exec_picks,
     first_enabled_comm,
+    record_comm_fire,
+    record_exec_fire,
+    record_policy_fire,
 )
 from repro_torch.exec.program import ExecProgram
 from repro_torch.kernels._build import KernelError
@@ -126,6 +143,14 @@ def _plan_segments(program, *, min_len: int = 2) -> dict[int, list]:
         if b - a >= min_len:
             segments[a] = seq[a:b]
     return segments
+
+
+def _settle(*devices: torch.device) -> None:
+    """Wait for the work queued on each CUDA device among ``devices``:
+    a traced span ends only once its device work is done."""
+    for dev in devices:
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
 
 
 def _fused_output(v: Any, device: torch.device) -> torch.Tensor | None:
@@ -237,7 +262,8 @@ class _FusedSegment:
             torch._foreach_copy_(g.static_in, [env[d] for d in self.ext])
         g.graph.replay()
         outs = [torch.empty_like(t) for t in g.static_out]
-        torch._foreach_copy_(outs, g.static_out)
+        if outs:  # steps that produce no data leave nothing to copy out
+            torch._foreach_copy_(outs, g.static_out)
         return dict(zip(self.out_names, outs)), cold
 
     def _capture(self, env: dict, device: torch.device) -> _Graph | None:
@@ -304,11 +330,27 @@ class TorchDeviceProgram(BackendProgram):
         else:
             devices = [resolve_device(d) for d in devices]
         locs = sorted(self.program.locations())
+        schedule = self.options.get("schedule")
+        if schedule is not None and getattr(schedule, "network", None):
+            # Placement scheduler hand-down: keep each network group's
+            # locations on one contiguous device block, so the cheap links
+            # of the cost model map to intra-device placement.
+            net = schedule.network
+            locs.sort(key=lambda l: (net.group_of(l) or "", l))
+            return {
+                loc: devices[i * len(devices) // len(locs)]
+                for i, loc in enumerate(locs)
+            }
         return {loc: devices[i % len(devices)] for i, loc in enumerate(locs)}
 
     def run(
         self, initial_payloads: Mapping[PayloadKey, Any] | None = None
     ) -> ExecutionResult:
+        recorder = None
+        if self.options.get("trace"):
+            from repro_torch.obs.events import TraceRecorder
+
+            recorder = TraceRecorder()
         device_of = self._device_map()
         stats = {
             "execs": 0,
@@ -324,7 +366,15 @@ class TorchDeviceProgram(BackendProgram):
         guard = None
         deadline = Deadline(None)
         if policy is not None:
-            guard = StepGuard(policy)
+            guard = StepGuard(
+                policy,
+                on_retry=None if recorder is None else (
+                    lambda step, n, e: record_policy_fire(
+                        recorder, "retry", "-", step,
+                        time.monotonic(), time.monotonic(),
+                    )
+                ),
+            )
             deadline = Deadline(policy.deadline_s)
             stats["policy"] = {"retries": 0, "timeouts": 0}
 
@@ -343,6 +393,9 @@ class TorchDeviceProgram(BackendProgram):
         payloads: dict[PayloadKey, Any] = {}
         for (loc, d), v in (initial_payloads or {}).items():
             payloads[(loc, d)] = place(loc, v)
+        if recorder is not None:
+            # The first span must not absorb work queued before the run.
+            _settle(*set(device_of.values()))
 
         cursors = {
             lp.location: Cursor(lp) for lp in self.program.programs
@@ -358,9 +411,17 @@ class TorchDeviceProgram(BackendProgram):
             cursors[src].complete(i)
             cursors[op.dst].complete(j)
             data[op.dst].add(op.data)
-            payloads[(op.dst, op.data)] = place(
-                op.dst, payloads[(op.src, op.data)]
-            )
+            payload = payloads[(op.src, op.data)]
+            if recorder is not None:
+                t0 = time.monotonic()
+            payloads[(op.dst, op.data)] = place(op.dst, payload)
+            if recorder is not None:
+                if device_of[op.src] != device_of[op.dst]:
+                    # Only a move between devices queues device work.
+                    _settle(device_of[op.src], device_of[op.dst])
+                record_comm_fire(
+                    recorder, op, t0, time.monotonic(), payload
+                )
             stats["comms"] += 1
             return True
 
@@ -412,7 +473,9 @@ class TorchDeviceProgram(BackendProgram):
                     stats["fused"]["fallbacks"] += 1
                     return False
                 dev = device_of[seg.leader]
-                t0 = time.perf_counter()
+                if recorder is not None:
+                    s0 = time.monotonic()  # the span's clock
+                t0 = time.perf_counter()  # the roofline's clock
                 out, cold = seg(env, dev)
                 if out is None:
                     seg_cache[start] = "eager"
@@ -421,6 +484,8 @@ class TorchDeviceProgram(BackendProgram):
                 if dev.type == "cuda":
                     torch.cuda.synchronize(dev)
                 dt = time.perf_counter() - t0
+                if recorder is not None:
+                    s1 = time.monotonic()
                 seg.calls += 1
             moved = sum(
                 int(getattr(v, "nbytes", 0)) for v in env.values()
@@ -445,6 +510,10 @@ class TorchDeviceProgram(BackendProgram):
             # Outputs already live on the leader's device, so placement only
             # pays for genuinely remote locations.
             for op, picks in acts:
+                if recorder is not None:
+                    # Every exec of the segment gets the segment's interval,
+                    # stamped outside the captured region.
+                    record_exec_fire(recorder, op, s0, s1)
                 missing = set(op.outputs) - set(out)
                 if missing:
                     raise RuntimeError(
@@ -485,10 +554,15 @@ class TorchDeviceProgram(BackendProgram):
                 leader = min(op.locations)
                 inputs = {d: payloads[(leader, d)] for d in op.inputs}
                 fn = self.steps[op.step].fn
+                if recorder is not None:
+                    t0 = time.monotonic()
                 if guard is not None:
                     out = guard.fire(op.step, lambda: fn(inputs))
                 else:
                     out = fn(inputs)
+                if recorder is not None:
+                    _settle(device_of[leader])
+                    record_exec_fire(recorder, op, t0, time.monotonic())
                 missing = set(op.outputs) - set(out)
                 if missing:
                     raise RuntimeError(
@@ -534,7 +608,14 @@ class TorchDeviceProgram(BackendProgram):
         }
         for (loc, d), v in payloads.items():
             result.setdefault(loc, {})[d] = v
-        return ExecutionResult(backend="torch", data=result, stats=stats)
+        profile = None
+        if recorder is not None:
+            from repro_torch.obs.profile import RunProfile
+
+            profile = RunProfile.from_recorder("torch", recorder)
+        return ExecutionResult(
+            backend="torch", data=result, stats=stats, profile=profile
+        )
 
 
 class TorchBackend(Backend):

@@ -11,9 +11,9 @@ nothing of :mod:`repro`):
 * :mod:`~repro_torch.core.parser`    — ``.swirl`` surface syntax (§5)
 * :mod:`~repro_torch.core.translate` — front-end translators incl. 1000 Genomes (§5-6)
 * :mod:`~repro_torch.core.compile`   — the step metadata model
-
-The reduction semantics and the bisimulation checker (``Plan.certify``) are
-not ported yet.
+* :mod:`~repro_torch.core.semantics` — reduction semantics, Figs. 2-3 (LTS)
+* :mod:`~repro_torch.core.bisim`     — weak barbed bisimulation (Def. 16 / Thm. 1),
+  behind ``Plan.certify``
 """
 
 from .graph import (
@@ -41,6 +41,16 @@ from .syntax import (
     seq,
     system,
 )
+from .semantics import (
+    CommTransition,
+    ExecTransition,
+    RunResult,
+    apply_transition,
+    barbs,
+    enabled_transitions,
+    reachable_states,
+    run,
+)
 from .encoding import building_block, encode, encode_flat
 from .flat import (
     FLAT_RULES,
@@ -59,6 +69,7 @@ from .optimizer import (
     rewrite_system,
     rewrite_system_tree,
 )
+from .bisim import weak_barbed_bisimilar
 from .parser import dumps, loads, parse_system, parse_trace
 from .translate import (
     DagTranslator,
@@ -91,6 +102,14 @@ __all__ = [
     "par",
     "normalize",
     "congruent",
+    "run",
+    "RunResult",
+    "barbs",
+    "enabled_transitions",
+    "apply_transition",
+    "reachable_states",
+    "ExecTransition",
+    "CommTransition",
     "encode",
     "encode_flat",
     "building_block",
@@ -107,6 +126,7 @@ __all__ = [
     "REWRITE_RULES",
     "REWRITE_RULES_TREE",
     "OptimizationStats",
+    "weak_barbed_bisimilar",
     "parse_system",
     "parse_trace",
     "dumps",

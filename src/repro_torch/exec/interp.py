@@ -4,7 +4,7 @@
 :class:`~repro_torch.exec.program.LocationProgram`: it maintains the set of op
 indices that are active **now** (not guarded by an unfinished sequential
 prefix — exactly the ``active_occurrences`` notion of
-the reference's ``core/semantics.py``, computed incrementally over the flat skeleton
+:mod:`repro_torch.core.semantics`, computed incrementally over the flat skeleton
 instead of by tree traversal).  Completing an op advances sequence pointers
 and parallel join counters in O(depth); the enabled set is always available
 in O(1).
@@ -41,6 +41,11 @@ __all__ = [
     "call_with_timeout",
     "first_enabled_comm",
     "enabled_exec_picks",
+    "record_comm_fire",
+    "record_exec_fire",
+    "record_policy_fire",
+    "record_recv_fire",
+    "record_send_fire",
 ]
 
 
@@ -213,9 +218,78 @@ def enabled_exec_picks(
 
 
 # ---------------------------------------------------------------------------
+# Shared span recording — the ONE place that decides what a span for an op
+# firing looks like, so every backend (centralised or decentralised) emits
+# an identical schema for the same program.  Call sites guard on
+# ``recorder is None`` themselves, keeping the untraced hot path free of
+# function calls; these helpers additionally no-op on None so defensive
+# callers pay only the call.
+# ---------------------------------------------------------------------------
+
+
+def record_send_fire(recorder, op, t0: float, t1: float,
+                     nbytes=None) -> None:
+    """One send span at ``op.src``, named after the datum.
+
+    ``t0``/``t1`` are raw ``time.monotonic()`` stamps; ``nbytes`` is an
+    ``int`` or the payload object itself (sized lazily off the hot path).
+    The helpers append raw rows via ``TraceRecorder.add`` — the bound
+    ``list.append`` fast path — rather than the ``span()`` wrapper; the
+    row layout is :class:`~repro_torch.obs.events.SpanEvent` field order."""
+    if recorder is None:
+        return
+    recorder.add(("send", op.src, op.data, t0, t1,
+                  op.src, op.dst, op.port, nbytes))
+
+
+def record_recv_fire(recorder, op, t0: float, t1: float,
+                     nbytes=None) -> None:
+    """One recv span at ``op.dst``, named after the port."""
+    if recorder is None:
+        return
+    recorder.add(("recv", op.dst, op.port, t0, t1,
+                  op.src, op.dst, op.port, nbytes))
+
+
+def record_comm_fire(recorder, op: SendOp, t0: float, t1: float,
+                     nbytes=None) -> None:
+    """Record one atomic comm firing (centralised interpreters): the send
+    span at ``op.src`` and the matching recv span at ``op.dst`` share the
+    interval.  Decentralised interpreters record the two halves
+    separately via :func:`record_send_fire` / :func:`record_recv_fire` —
+    the identity schema is the same either way."""
+    if recorder is None:
+        return
+    add = recorder.add
+    add(("send", op.src, op.data, t0, t1, op.src, op.dst, op.port, nbytes))
+    add(("recv", op.dst, op.port, t0, t1, op.src, op.dst, op.port, nbytes))
+
+
+def record_exec_fire(recorder, op: ExecOp, t0: float, t1: float,
+                     locations: Iterable[str] | None = None) -> None:
+    """Record one exec firing: one span per location of ``M(s)`` (the
+    (EXEC) rule reduces all of them synchronously)."""
+    if recorder is None:
+        return
+    for loc in locations if locations is not None else op.locations:
+        recorder.add(("exec", loc, op.step, t0, t1, None, None, None, None))
+
+
+def record_policy_fire(recorder, kind: str, location: str, step: str,
+                       t0: float, t1: float) -> None:
+    """One policy-outcome span (``kind`` ∈ retry/timeout/speculation/
+    heartbeat_death/deadline), named ``"<kind>:<step>"`` so Perfetto rows
+    group by mechanism.  Same None fast-path contract as the fire helpers."""
+    if recorder is None:
+        return
+    recorder.add(("policy", location, f"{kind}:{step}",
+                  t0, t1, None, None, None, None))
+
+
+# ---------------------------------------------------------------------------
 # Shared fault-policy enforcement — the ONE implementation of per-step
 # timeout + retry + run deadline that every backend wires around its step
-# fires so the
+# fires (the same single-home pattern as the span helpers above), so the
 # conformance suite can demand identical policy semantics from interpreters
 # with wildly different architectures.
 # ---------------------------------------------------------------------------

@@ -26,7 +26,7 @@ it is linear in action count and never re-walks trees per backend.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Iterator, Mapping, Sequence, Union
+from typing import TYPE_CHECKING, Any, Iterator, Mapping, Sequence, Union
 
 from repro_torch.core.flat import OP_ACT, OP_NIL, OP_PAR, OP_SEQ, FlatSystem, FlatTrace
 from repro_torch.core.syntax import (
@@ -37,6 +37,9 @@ from repro_torch.core.syntax import (
     Send,
     WorkflowSystem,
 )
+
+if TYPE_CHECKING:  # pragma: no cover - typing only
+    from repro_torch.sched.report import ScheduleReport
 
 __all__ = [
     "Endpoint",
@@ -353,13 +356,13 @@ class ExecProgram:
     """A whole lowered system: one :class:`LocationProgram` per location.
 
     Carries the placement/schedule metadata resolved at lowering time
-    (``schedule`` is the placement scheduler's report when the plan went
-    through one; the port has no scheduler yet, so it stays ``None``).  Compile once, interpret — and
+    (``schedule`` is the :class:`~repro_torch.sched.ScheduleReport` when the plan
+    went through the placement scheduler).  Compile once, interpret — and
     with :meth:`repro_torch.api.Executable.run_many`, run — many times.
     """
 
     programs: tuple[LocationProgram, ...]
-    schedule: Any = field(default=None, repr=False)
+    schedule: "ScheduleReport | None" = field(default=None, repr=False)
 
     def __post_init__(self) -> None:
         names = [p.location for p in self.programs]
@@ -455,7 +458,7 @@ class ExecProgram:
 def lower_flat(
     fs: FlatSystem,
     *,
-    schedule: Any = None,
+    schedule: "ScheduleReport | None" = None,
     system: WorkflowSystem | None = None,
 ) -> ExecProgram:
     """Lower a (possibly rewritten-in-place) :class:`FlatSystem`.
@@ -483,7 +486,7 @@ def lower_flat(
 
 
 def lower_system(
-    system: WorkflowSystem, *, schedule: Any = None
+    system: WorkflowSystem, *, schedule: "ScheduleReport | None" = None
 ) -> ExecProgram:
     """Lower a workflow system to per-location executable programs."""
     return lower_flat(

@@ -16,6 +16,7 @@ Thin re-export of :mod:`repro_torch.api`, as ``repro.swirl`` is of
 
 from .api import (  # noqa: F401
     AppliedRewrite,
+    BisimCertificate,
     ConcurrentRunError,
     Executable,
     ExecutionResult,
@@ -30,6 +31,13 @@ from .backends import (  # noqa: F401
     get_backend,
     register_backend,
 )
+from .sched import (  # noqa: F401
+    CostModel,
+    NetworkModel,
+    ScheduleReport,
+    SizeModel,
+    simulate,
+)
 
 __all__ = [
     "trace",
@@ -38,10 +46,16 @@ __all__ = [
     "Executable",
     "ExecutionResult",
     "AppliedRewrite",
+    "BisimCertificate",
     "ConcurrentRunError",
     "clear_compile_cache",
     "compile_cache_stats",
     "register_backend",
     "get_backend",
     "available_backends",
+    "NetworkModel",
+    "SizeModel",
+    "CostModel",
+    "ScheduleReport",
+    "simulate",
 ]

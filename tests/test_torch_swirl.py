@@ -6,8 +6,9 @@ The same workflow instances — seeded random layered DAGs from
 canonical ``.swirl`` text, the fingerprint, the per-location programs and
 the fusion planner's segments must be equal.  So must the plans of the
 training and pipeline translators, and the port's flat rewriting engines
-must agree with its tree engines.  The port's refusals of what it has not
-ported yet are checked here too.
+must agree with its tree engines.  What the port refused before it ported
+tracing, scheduling and certification is checked to run now, and what it
+still refuses to be refused.
 """
 
 from __future__ import annotations
@@ -182,7 +183,7 @@ def test_placement_override_rederives_equal_plans():
     assert tswirl.compile_cache_stats()["hits"] == before["hits"] + 1
 
 
-# -- refusals -------------------------------------------------------------------
+# -- what the port refused before, and what it still refuses ---------------------
 
 
 def _plan():
@@ -191,22 +192,40 @@ def _plan():
 
 @pytest.mark.parametrize("option", ["trace", "schedule", "workers"])
 def test_unported_lowering_options_raise_the_unknown_option_error(option):
-    with pytest.raises(TypeError, match=r"unknown options for backend 'torch'.*supported:.*policy"):
-        _plan().lower("torch", **{option: True})
+    """``trace`` and ``schedule`` are ported now and accepted; ``workers``
+    (the reference's multiprocess backend's option) still raises the
+    unknown-option error."""
+    plan = _plan()
+    if option == "workers":
+        with pytest.raises(TypeError, match=r"unknown options for backend 'torch'.*supported:.*policy"):
+            plan.lower("torch", **{option: True})
+        return
+    value = True if option == "trace" else plan.schedule().schedule_report
+    lowered = plan.lower("torch", platform="cpu", **{option: value})
+    assert lowered.options[option] is value
+    res = lowered.compile({s: (lambda i, s=s: {d: s for d in plan.instance.out_data(s)})
+                           for s in plan.steps()}).run()
+    assert (res.profile is not None) == (option == "trace")
+    assert res.stats["execs"] == len(plan.steps())
 
 
 def test_unported_stages_raise_by_name():
+    """What the port refused by name before its trace, schedule and certify
+    slice now runs; a bad placement string and every other backend name are
+    still refused."""
     plan = _plan()
-    with pytest.raises(NotImplementedError, match="placement='auto'"):
-        plan.lower("torch", placement="auto")
+    auto = plan.lower("torch", placement="auto", platform="cpu")
+    assert auto.plan.schedule_report is not None
+    assert auto.options["schedule"] is auto.plan.schedule_report
     with pytest.raises(ValueError, match="placement must be"):
         plan.lower("torch", placement="round-robin")
-    with pytest.raises(NotImplementedError, match="certify=True"):
-        plan.optimize(RULES, certify=True)
-    with pytest.raises(NotImplementedError, match="Plan.schedule"):
-        plan.schedule()
-    with pytest.raises(NotImplementedError, match="Plan.profile"):
-        plan.profile(None)
+    certified = plan.optimize(RULES, certify=True)
+    assert certified.certificate is not None and certified.certificate.equivalent
+    assert plan.schedule().schedule_report is not None
+    fns = {s: (lambda i, s=s: {d: s for d in plan.instance.out_data(s)}) for s in plan.steps()}
+    traced = plan.lower("torch", trace=True, platform="cpu").compile(fns).run()
+    report = plan.profile(traced)
+    assert report.backend == "torch" and report.drifts
     for name in ("jax", "inprocess", "nope"):
         with pytest.raises(UnknownBackendError, match="available: \\('torch',\\)"):
             plan.lower(name)
