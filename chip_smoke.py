@@ -65,6 +65,23 @@ Phases, each of which exits nonzero on failure:
    and after ``CostModel.from_profile``, the schedule's bytes saved, comms
    and ms a run against the hand placement, and ``optimize(certify=True)``'s
    states and host ms.
+9. Training on the card through ``repro_torch.launch.train.Trainer`` (what
+   ``train`` runs): T-full, llama3.2-3b at full width with 8 of its 28
+   layers (bf16, remat), 2 pods with int8 gradsync, global batch 4 x 512,
+   one warm iteration and 3 timed.  Loss and grad norm must be finite and
+   every param leaf must change; from launch counts of 0, one iteration
+   must launch rmsnorm 2 x (17 + 16) = 66 times (forward and remat
+   recompute), flash 2 x (8 + 8) = 32 and decode 0.  One fwdbwd on the
+   kernel path is held against the plain path (loss 1e-2 relative, each
+   grad leaf 5e-2 by relative L2, every leaf nonzero and finite) and both
+   against the plain path in fp32 (the kernel path's whole gradient at most
+   1.25x as far).  Prints ms an iteration, tokens/s, peak memory, each
+   step's ms, device time by kernel family from one profiled iteration and
+   the share of 989 TFLOP/s bf16 the counted operations reach.  Then the
+   smoke config (fp32, head_dim 64) writes a checkpoint through the
+   trainer's ``ckpt`` step on the card; it must read back into CPU tensors
+   bit for bit, a CPU model's loss at it must match the card's, and a new
+   trainer must resume from it for one step.
 
 ``python3 chip_smoke.py --rmsnorm-times ROOT`` only times the rmsnorm
 wrapper of the checkout at ROOT (see :func:`rmsnorm_times`), and
@@ -73,8 +90,8 @@ wrapper of the checkout at ROOT (see :func:`rmsnorm_times`), and
 checkouts at A and B in alternating pairs (see :func:`dataplane_compare`).
 
 The line before the last is the kernels' JSON record (each kernel's
-launches on each path under ``launches_by_path``), the data plane's and
-the traced phase's numbers above the card's name; the last line is
+launches on each path under ``launches_by_path``), the data plane's,
+the traced phase's and training's numbers above the card's name; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 rest of the repository beside it, it exits nonzero and prints no result.
 """
@@ -129,6 +146,21 @@ CERT_GENOMES = dict(n=2, m=1, a=1, b=1, c=1)
 G_RULES = ("R1R2", "R3")
 # --dataplane-compare: the share of pairs that must agree in sign for a verdict.
 SIGN_AGREE = 0.9
+# Phase 9: training.  T-full is llama3.2-3b at full width with its depth cut
+# from 28 layers to 8 (1.20 B params): the functional AdamW update holds old
+# and new params and moments at once, and the full depth's 3.21 B params
+# would need about 77 GB before any temporary (PERF.md, section 4).  Two
+# pods with int8 compression (the reference trainer's defaults), global
+# batch 4 of 512 tokens; one warm iteration, then TRAIN_TIMED timed.
+TRAIN_LAYERS, TRAIN_PODS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_TIMED = 8, 2, 4, 512, 3
+# One fwdbwd on the kernel path against the plain path, bf16, same weights
+# and batch: the loss within 1e-2 relative and each grad leaf within 5e-2 by
+# relative L2 (a bf16 rounding is 2^-9 relative; the two paths round the
+# attention's P.V and its backward at different places, and the difference
+# compounds through 8 layers forward, recompute and backward); and against
+# the plain path in fp32 on the same (bf16-valued) weights, the kernel
+# path's whole gradient at most F32_RATIO times as far as the plain bf16 path's.
+TRAIN_LOSS_RTOL, GRAD_REL_L2_TOL = 1e-2, 5e-2
 
 # NVIDIA data-sheet peaks, dense: device memory bytes/s; bf16 tensor-core,
 # and fp32 CUDA-core, operations/s.
@@ -1177,6 +1209,221 @@ def phase_traced(torch, smi: str) -> dict:
     return out
 
 
+def kernel_family(name: str) -> str:
+    """The family of a device kernel, by its name, for phase 9's split."""
+    n = name.lower()
+    if "rmsnorm" in n:
+        return "rmsnorm"
+    if "flash" in n:
+        return "flash"
+    if any(s in n for s in ("gemm", "gemv", "nvjet", "xmma", "cutlass", "cublas", "matmul")):
+        return "GEMM"
+    if "elementwise" in n or "reduce" in n:
+        return "elementwise"
+    return "other"
+
+
+def train_flops(cfg, tokens: int, seq: int) -> float:
+    """Operations an iteration counts, the formula PERF.md states: 6 N T for
+    the matmuls (N = the blocks' and the tied head's weights), 2 N_blocks T
+    for remat's recomputed block forward, and causal attention's QK^T and
+    P.V, 2 B Hq L^2 d a layer forward, four times (forward, recompute and
+    a backward of twice the forward)."""
+    d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
+    n_block = cfg.n_layers * (2 * d * qd + 2 * d * kvd + 3 * d * cfg.d_ff)
+    n_head = d * cfg.vocab
+    attn_fwd = cfg.n_layers * 2 * (tokens // seq) * cfg.n_heads * seq * seq * cfg.head_dim
+    return 6 * (n_block + n_head) * tokens + 2 * n_block * tokens + 4 * attn_fwd
+
+
+def phase_train(torch, smi: str, sku: str) -> dict:
+    """Phase 9a: T-full through ``repro_torch.launch.train.Trainer`` (what
+    ``train`` runs) on ``cuda``; 9b: a checkpoint written on the card reads
+    back on the CPU bit for bit, and training resumes from it."""
+    import shutil
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch._bridge import to_torch, tree_flatten_with_path, tree_leaves, tree_map
+    from repro_torch.ckpt import latest_step, load_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch.steps import make_grad_step
+    from repro_torch.launch.train import Trainer, checkpoint_tree
+    from repro_torch.models import Model, params_from_jax, set_attn_impl
+
+    sync = torch.cuda.synchronize
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=TRAIN_LAYERS)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(cfg, steps=1 + TRAIN_TIMED, n_pods=TRAIN_PODS, global_batch=TRAIN_BATCH,
+                 seq_len=TRAIN_SEQ, ckpt_dir=None, device="cuda")
+    n_params = sum(p.numel() for p in tree_leaves(tr.params))
+    print(f"[9] T-full: {ARCH} at full width (d {cfg.d_model}, vocab {cfg.vocab}, {cfg.dtype}, "
+          f"remat {cfg.remat}), {TRAIN_LAYERS} of 28 layers, {n_params / 1e9:.3f} B params; "
+          f"{TRAIN_PODS} pods, int8 gradsync, global batch {TRAIN_BATCH} x {TRAIN_SEQ}")
+    p0 = tr.params
+    m = tr.iteration(0)  # warm
+    sync()
+    if not (np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])):
+        fail(f"T-full: non-finite loss or grad_norm {m}")
+    same = [n for (n, a), b in zip(tree_flatten_with_path(p0), tree_leaves(tr.params)) if torch.equal(a, b)]
+    if same:
+        fail(f"T-full: {len(same)} param leaves unchanged by an update: {same[:4]}")
+    del p0
+    iter_ms, counts = [], None
+    for it in range(1, 1 + TRAIN_TIMED):
+        if it == 1:
+            kops.reset_launch_counts()
+        sync()
+        t0 = time.perf_counter()
+        m = tr.iteration(it)
+        sync()
+        iter_ms.append((time.perf_counter() - t0) * 1e3)
+        if it == 1:
+            counts = kops.launch_counts()
+        if not (np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])):
+            fail(f"T-full: non-finite loss or grad_norm at iteration {it}: {m}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n = TRAIN_LAYERS
+    want = {"rmsnorm": TRAIN_PODS * ((2 * n + 1) + 2 * n),
+            "flash_attention": TRAIN_PODS * 2 * n, "decode_attention": 0}
+    print(f"[9] launches in one iteration {counts} (expected {want})")
+    if counts != want:
+        fail("the training path did not launch each kernel as expected")
+
+    # The steps of one iteration by host clock, each ended by a synchronise.
+    it = 1 + TRAIN_TIMED
+    fns = tr.step_fns()
+    env = {f"iter_{i}": it for i in range(TRAIN_PODS)}
+    env.update({f"params_{i}": tr.params for i in range(TRAIN_PODS)})
+    env.update({f"opt_{i}": tr.opt_state for i in range(TRAIN_PODS)})
+    step_ms = {"shard": 0.0, "fwdbwd": 0.0, "gradsync": 0.0, "update": 0.0}
+    order = ([f"shard_{i}" for i in range(TRAIN_PODS)] + [f"fwdbwd_{i}" for i in range(TRAIN_PODS)]
+             + ["gradsync"] + [f"update_{i}" for i in range(TRAIN_PODS)])
+    for name in order:
+        sync()
+        t0 = time.perf_counter()
+        env.update(fns[name](env))
+        sync()
+        step_ms[name.split("_")[0]] += (time.perf_counter() - t0) * 1e3
+    del env, fns
+    # One profiled iteration: device time by family.
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tr.iteration(it + 1)
+        sync()
+    fam: dict = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            f = kernel_family(e.key)
+            fam[f] = fam.get(f, 0.0) + e.device_time_total / 1e3
+    dev_ms = sum(fam.values())
+    med = statistics.median(iter_ms)
+    flops = train_flops(cfg, tokens, TRAIN_SEQ)
+    share = flops / (med / 1e3) / PEAKS[sku]["bf16"]
+    print(f"[9] ms an iteration {fmt_ms(iter_ms)}, median {med:.2f} ms; {tokens / med * 1e3:.1f} tokens/s; "
+          f"peak memory {peak_gb:.2f} GB  ({smi})")
+    print(f"[9] steps of one iteration (host clock, synchronised): "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in step_ms.items()) + f"  ({smi})")
+    split = ", ".join(f"{k} {v:.2f} ms ({v / dev_ms:.1%})"
+                      for k, v in sorted(fam.items(), key=lambda kv: -kv[1])) if dev_ms else "none recorded"
+    print(f"[9] one profiled iteration: device {dev_ms:.2f} ms: {split}  ({smi})")
+    print(f"[9] counted operations {flops:.4e} an iteration: {flops / (med / 1e3) / 1e12:.1f} TFLOP/s, "
+          f"{share:.2%} of {PEAKS[sku]['bf16'] / 1e12:.0f} TFLOP/s bf16  ({smi})")
+
+    # One fwdbwd: the kernel path against the plain path, and both against fp32
+    # (the trainer's moments and error feedback go first, to make room).
+    params, grad_fn = tr.params, tr.grad_fn
+    batch = {k: to_torch(v, "cuda") for k, v in tr.dataset.batch(0, 0, TRAIN_PODS).items()}
+    del tr
+    torch.cuda.empty_cache()
+    gk, mk = grad_fn(params, batch)
+    set_attn_impl("plain")
+    try:
+        gp, mp = grad_fn(params, batch)
+        m32 = Model(dataclasses.replace(cfg, dtype="float32"), "cuda")
+        g32, m32m = make_grad_step(m32)(tree_map(lambda t: t.float(), params), batch)
+    finally:
+        set_attn_impl(None)
+    names = [n for n, _ in tree_flatten_with_path(gk)]
+    bad = [n for n, g in zip(names, tree_leaves(gk)) if not (bool(g.isfinite().all()) and float(g.abs().max()) > 0)]
+    if bad:
+        fail(f"T-full: {len(bad)} grad leaves are zero or non-finite on the kernel path: {bad[:4]}")
+    lk, lp, l32 = float(mk["loss"]), float(mp["loss"]), float(m32m["loss"])
+    rels = {n: rel_l2(a, b.float()) for n, a, b in zip(names, tree_leaves(gk), tree_leaves(gp))}
+    k32 = {n: rel_l2(a, b) for n, a, b in zip(names, tree_leaves(gk), tree_leaves(g32))}
+    p32 = {n: rel_l2(a, b) for n, a, b in zip(names, tree_leaves(gp), tree_leaves(g32))}
+    def whole_rel_l2(gs) -> float:  # of all leaves as one vector, a leaf at a time
+        num = sum(float((a.float() - b).norm()) ** 2 for a, b in zip(tree_leaves(gs), tree_leaves(g32)))
+        return (num / sum(float(b.norm()) ** 2 for b in tree_leaves(g32))) ** 0.5
+
+    wk, wp = whole_rel_l2(gk), whole_rel_l2(gp)
+    worst = max(rels, key=rels.get)
+    print(f"[9] fwdbwd kernel vs plain: loss {lk:.6f} vs {lp:.6f} (fp32 {l32:.6f}), rel "
+          f"{abs(lk - lp) / abs(lp):.3e} (tol {TRAIN_LOSS_RTOL:g}); grads: {len(names)} leaves, all "
+          f"nonzero and finite; max rel L2 {rels[worst]:.3e} at {worst} (tol {GRAD_REL_L2_TOL:g})")
+    print(f"[9] against fp32: whole gradient rel L2 kernel {wk:.3e}, plain bf16 {wp:.3e}, ratio "
+          f"{wk / wp:.3f} (tol {F32_RATIO:g}); per leaf, kernel/plain ratio max "
+          f"{max(k32[n] / p32[n] for n in names):.3f}, min {min(k32[n] / p32[n] for n in names):.3f}")
+    for nm in sorted(names, key=rels.get)[-5:]:
+        print(f"  {nm}: vs plain {rels[nm]:.3e}; vs fp32 kernel {k32[nm]:.3e}, plain {p32[nm]:.3e}")
+    if abs(lk - lp) / abs(lp) > TRAIN_LOSS_RTOL or rels[worst] > GRAD_REL_L2_TOL:
+        fail("T-full: the kernel path's fwdbwd disagrees with the plain path")
+    if wk > F32_RATIO * wp:
+        fail(f"T-full: the kernel path's gradient is {wk / wp:.3f}x as far from fp32 as the plain path's")
+    del gk, gp, g32, m32, params
+    torch.cuda.empty_cache()
+
+    # 9b: a checkpoint written on the card through the trainer's ckpt step.
+    # The smoke config (fp32) with head_dim 64, which the flash kernel takes.
+    scfg = dataclasses.replace(get_config(ARCH, smoke=True), head_dim=64)
+    d = ROOT / "build" / "ckpt_smoke"
+    shutil.rmtree(d, ignore_errors=True)
+    try:
+        run = dict(n_pods=2, global_batch=4, seq_len=32, ckpt_dir=str(d), device="cuda")
+        st = Trainer(scfg, steps=2, **run)
+        kops.reset_launch_counts()
+        st.iteration(0)
+        smoke_counts = kops.launch_counts()
+        if latest_step(d) != 1 or smoke_counts["rmsnorm"] == 0 or smoke_counts["flash_attention"] == 0:
+            fail(f"9b: no checkpoint at step 1 ({latest_step(d)}) or no kernel launched ({smoke_counts})")
+        like = checkpoint_tree(scfg, st.params, st.opt_state)
+        back = load_checkpoint(d, 1, like)
+        cpu = {"params": params_from_jax(back["params"], scfg, "cpu"),
+               "m": params_from_jax(back["opt"]["m"], scfg, "cpu"),
+               "v": params_from_jax(back["opt"]["v"], scfg, "cpu")}
+        card = tree_map(lambda t: t.cpu(), {"params": st.params, "m": st.opt_state.m, "v": st.opt_state.v})
+        diff = [n for (n, a), b in zip(tree_flatten_with_path(cpu), tree_leaves(card))
+                if a.dtype != b.dtype or not torch.equal(a, b)]
+        if diff or int(back["opt"]["step"]) != int(st.opt_state.step):
+            fail(f"9b: the checkpoint read on the CPU differs from the card's state: {diff[:4]}")
+        batch = {k: to_torch(v) for k, v in st.dataset.batch(1, 0, 1).items()}
+        cpu_loss = float(Model(scfg, "cpu").loss(cpu["params"], batch)[0])
+        with torch.no_grad():
+            card_loss = float(st.model.loss(st.params, {k: v.cuda() for k, v in batch.items()})[0])
+        rt = Trainer(scfg, steps=1, **run)
+        mr = rt.iteration(rt.start)
+        if rt.start != 1 or latest_step(d) != 2 or not np.isfinite(mr["loss"]):
+            fail(f"9b: resume started at {rt.start}, wrote {latest_step(d)}, loss {mr['loss']}")
+        print(f"[9] checkpoint on the card -> CPU: {len(tree_leaves(cpu))} leaves bit for bit; "
+              f"loss at the checkpoint, CPU {cpu_loss:.6f} vs card {card_loss:.6f}; resumed from "
+              f"step {rt.start}, loss {mr['loss']:.6f}, wrote step {latest_step(d)}")
+        if abs(cpu_loss - card_loss) > 1e-4 * abs(cpu_loss):
+            fail("9b: the CPU model's loss at the checkpoint differs from the card's")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return {"launches": counts, "iter_ms": iter_ms, "median_ms": med, "tokens_per_s": tokens / med * 1e3,
+            "step_ms": step_ms, "device_ms": fam, "peak_gb": peak_gb, "flops": flops, "bf16_share": share,
+            "loss": {"kernel": lk, "plain": lp, "fp32": l32}, "grad_rel_l2_max": rels[worst],
+            "fp32_ratio": wk / wp, "params": n_params, "device": smi}
+
+
+def fmt_ms(xs) -> str:
+    return "[" + ", ".join(f"{x:.2f}" for x in xs) + "]"
+
+
 def nvidia_smi() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1456,7 +1703,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     traced = phase_traced(torch, smi)
 
-    # -- 9. result ---------------------------------------------------------------------
+    # -- 9. training on the card ---------------------------------------------------------
+    train = phase_train(torch, smi, sku)
+
+    # -- 10. result --------------------------------------------------------------------
     src = "src/repro_torch/csrc/{}.cu"
     replaces = {
         "rmsnorm": "src/repro/kernels/rmsnorm.py:25",
@@ -1475,10 +1725,12 @@ def main() -> int:
                 "serve": counts[k],
                 **{path: {arm: c[k] for arm, c in res["launches"].items()}
                    for path, res in (("dataplane", dataplane), ("traced", traced))},
+                "train": train["launches"][k],
             },
         })
     print(json.dumps({"dataplane": dataplane}))
     print(json.dumps({"traced": traced}))
+    print(json.dumps({"train": train}))
     print(f"kernels: {', '.join(r['name'] for r in record)}; {time.monotonic() - t_start:.1f} s in all")
     print(smi)
     print(json.dumps({"kernels": record}))

@@ -1,8 +1,8 @@
 """repro_torch — the PyTorch/CUDA port of :mod:`repro`, for an NVIDIA H100.
 
 It mirrors the JAX package's module names (``models``, ``configs``,
-``kernels``, ``launch``, and SWIRL's own ``core``, ``exec``, ``backends``,
-``api`` and ``swirl``) and imports nothing of it, nor ``jax``: what it needs
+``kernels``, ``launch``, ``optim``, ``ckpt``, ``data``, and SWIRL's own
+``core``, ``exec``, ``backends``, ``api`` and ``swirl``) and imports nothing of it, nor ``jax``: what it needs
 of a JAX-free module it keeps as its own copy.  Entry points run on ``cuda``
 unless the caller passes ``device="cpu"``; asking for ``cuda`` on a machine
 without one raises.  Every TPU kernel of the reference is a hand-written
@@ -18,12 +18,15 @@ __version__ = "0.1.0"
 _SUBMODULES = (
     "api",
     "backends",
+    "ckpt",
     "configs",
     "core",
+    "data",
     "exec",
     "kernels",
     "launch",
     "models",
+    "optim",
     "swirl",
     "workflow",
 )

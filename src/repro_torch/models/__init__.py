@@ -1,7 +1,7 @@
 """Model zoo of the port (dense decoders so far): config, layers, facade, converter."""
 
 from .config import ModelConfig, MoECfg, SSMCfg, smoke_variant
-from .convert import params_from_jax
+from .convert import params_from_jax, params_to_jax
 from .layers import get_attn_impl, set_attn_impl
 from .model import Model, padded_vocab
 
@@ -13,6 +13,7 @@ __all__ = [
     "Model",
     "padded_vocab",
     "params_from_jax",
+    "params_to_jax",
     "set_attn_impl",
     "get_attn_impl",
 ]

@@ -9,6 +9,9 @@ values ``"plain"`` and ``"kernel"``):
   (``q_offset = cache_len``, ``kv_len = cache_len + L``); attention with a
   cache and ``L == 1`` (decode) launches the decode kernel
   (``kv_len = cache_len + 1``).  A CPU tensor under ``"kernel"`` raises.
+  With grad on, rmsnorm and flash run under
+  :class:`repro_torch.kernels.ops.KernelWithPlainGrad` (kernel forward,
+  the plain version's VJP backward); decode attention raises.
 * ``"plain"``: the reference's arithmetic in PyTorch, including the chunked
   GQA ``sdpa``, which rounds the probabilities to ``v``'s dtype before
   ``P·V`` as the reference does.

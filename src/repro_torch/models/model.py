@@ -7,19 +7,26 @@ with ``lax.scan``; the port keeps one parameter dict per layer, in
 code serves the cache-free forward, prefill (cache write) and decode (cache
 append).  The cache is written in place (see ``layers.attention_block``).
 
+``cfg.remat`` recomputes each block in the backward pass
+(``torch.utils.checkpoint``, non-reentrant) when grad is on and there is no
+cache.  The reference's ``jax.checkpoint`` policy,
+``dots_with_no_batch_dims_saveable``, keeps the matmul outputs; whole-block
+recompute gives the same numbers with more recompute.
+
 What is not dense raises ``NotImplementedError`` naming its ROADMAP item:
 MoE, the recurrent mixers, encoder-decoder, the vision frontend,
-``attn_local``, the logit softcaps and ``post_block_norm``.  ``remat`` has no
-meaning when serving and is ignored.
+``attn_local``, the logit softcaps and ``post_block_norm``.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from functools import partial
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch._bridge import resolve_device
 
@@ -158,8 +165,9 @@ class Model:
             logits = x @ params["embed"].T
         else:
             logits = linear(params["lm_head"], x)
-        if padded_vocab(cfg) != cfg.vocab:  # mask padded rows
-            logits[..., cfg.vocab :] = -1e30
+        if padded_vocab(cfg) != cfg.vocab:  # mask padded rows (differentiable: a masked_fill)
+            pad = torch.arange(logits.shape[-1], device=logits.device) >= cfg.vocab
+            logits = logits.masked_fill(pad, -1e30)
         return logits
 
     def _stack(
@@ -167,7 +175,12 @@ class Model:
     ) -> tuple[torch.Tensor, list[Params] | None]:
         cfg = self.cfg
         new_layers = [] if cache is not None else None
+        remat = cfg.remat and cache is None and torch.is_grad_enabled()
         for i, (kind, p) in enumerate(zip(cfg.layer_seq(), params["layers"])):
+            if remat:
+                block = partial(apply_block, cfg, kind, positions=positions, causal=True, cache=None)
+                x, _ = checkpoint(block, p, x, use_reentrant=False)
+                continue
             c = None
             if cache is not None:
                 c = {**cache["layers"][i], "len": cache["len"]}
@@ -182,6 +195,36 @@ class Model:
         pos = torch.arange(tokens.shape[1], dtype=torch.int32, device=tokens.device)
         x, _ = self._stack(params, self._embed(params, tokens), positions=pos, cache=None)
         return self._logits(params, x)
+
+    # -- loss ----------------------------------------------------------------
+    def loss(
+        self, params: Params, batch: dict[str, torch.Tensor], *, seq_chunk: int = 1024
+    ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+        """Next-token CE (labels == -1 ignored) + the MoE aux loss, as the reference.
+
+        The CE is taken over ``seq_chunk`` positions at a time, each chunk's
+        ``log_softmax`` in fp32.  The dense families have no aux loss (0).
+        Returns ``(loss, {"ce", "aux", "tokens"})``, fp32 scalars.
+        """
+        cfg = self.cfg
+        logits = self.forward(params, batch["tokens"])
+        labels = batch["labels"]
+        dev = logits.device
+        aux = torch.zeros((), dtype=torch.float32, device=dev)
+        l = logits.shape[1]
+        chunk = min(seq_chunk, l)
+        total = torch.zeros((), dtype=torch.float32, device=dev)
+        count = torch.zeros((), dtype=torch.float32, device=dev)
+        for s in range(0, l, chunk):
+            logp = torch.log_softmax(logits[:, s : s + chunk].float(), dim=-1)
+            lb = labels[:, s : s + chunk].long()
+            tgt = torch.gather(logp, -1, lb.clamp_min(0)[..., None])[..., 0]
+            mask = (lb >= 0).float()
+            total = total - torch.sum(tgt * mask)
+            count = count + torch.sum(mask)
+        ce = total / torch.clamp_min(count, 1.0)
+        loss = ce + cfg.moe.router_aux_weight * aux
+        return loss, {"ce": ce, "aux": aux, "tokens": count}
 
     # -- serving -----------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int) -> Params:

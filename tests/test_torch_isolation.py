@@ -20,8 +20,16 @@ for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
 bad = sorted(n for n in sys.modules
              if n == "jax" or n.startswith("jax.") or n == "repro" or n.startswith("repro."))
 print(len(names), bad)
+print(" ".join(names))
 assert not bad, bad
 """
+
+# The training slice's modules, which the walk above must reach.
+TRAINING = (
+    "repro_torch.launch.train", "repro_torch.launch.steps", "repro_torch.optim.adamw",
+    "repro_torch.optim.compress", "repro_torch.ckpt.checkpoint", "repro_torch.data.pipeline",
+    "repro_torch.models.convert",
+)
 
 
 def test_port_imports_no_jax_and_no_repro():
@@ -33,6 +41,8 @@ def test_port_imports_no_jax_and_no_repro():
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[0])
     assert n_modules >= 15  # every module of the port was imported
+    imported = set(out.stdout.splitlines()[1].split())
+    assert set(TRAINING) <= imported, sorted(set(TRAINING) - imported)
 
 
 def test_chip_smoke_imports_no_jax():

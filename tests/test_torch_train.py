@@ -1,0 +1,434 @@
+"""Training on the port (CPU, plain path) against the JAX package.
+
+Weights are the reference's own init carried across with ``params_from_jax``;
+tokens and labels are made with numpy.  Tolerances:
+
+* ``Model.loss`` in fp32: 2e-5 relative (``TOL`` of ``tests/test_kernels.py``);
+  each grad leaf atol 1e-5 + rtol 1e-4 (XLA and torch sum the backward's
+  matmuls in other orders).  bf16: loss 2e-2 relative and each grad leaf
+  2e-2 by relative L2 (the bf16 ``TOL``; XLA keeps fp32 between fused ops
+  where torch rounds each op's output).
+* The slice as a whole (3 reference steps, then both packages resume from
+  that checkpoint for 2 more): losses 2e-5 relative; params 1e-5 uncompressed,
+  1e-4 compressed (an int8 rounding that an ulp of gradient tips over a half
+  moves one element by one step, whose AdamW update is at most ~lr, 3e-5 a
+  step, in the 2 steps).
+* The kernel path rehearsed on the CPU (the kernels' wrappers return their
+  plain versions for CPU tensors) against the plain path: fp32 2e-5
+  relative on the loss, atol 1e-5 + rtol 1e-4 on each grad leaf, as above
+  (the plain attention and the flash kernel's plain version order their
+  sums differently).
+"""
+
+import dataclasses
+import shutil
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jget
+from repro.launch.train import train as jtrain
+from repro.models import Model as JModel
+from repro.models import ModelConfig as JConfig
+from repro_torch import _bridge
+from repro_torch.ckpt import latest_step
+from repro_torch.configs import get_config as tget
+from repro_torch.kernels import flash_attention as kflash
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
+from repro_torch.kernels import rmsnorm as krmsnorm
+from repro_torch.launch.steps import make_grad_step, make_train_step
+from repro_torch.launch.train import Trainer
+from repro_torch.launch.train import main as tmain
+from repro_torch.launch.train import train as ttrain
+from repro_torch.models import Model as TModel
+from repro_torch.models import ModelConfig as TConfig
+from repro_torch.models import layers as tlayers
+from repro_torch.models import params_from_jax, params_to_jax
+from repro_torch.optim import AdamWConfig
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+ARCH = "llama3.2-3b"
+RUN = dict(smoke=True, n_pods=2, global_batch=4, seq_len=32, log_every=100)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def host(tree):
+    return jax.tree.map(
+        lambda a: np.asarray(a).view(np.uint16) if a.dtype == jnp.bfloat16 else np.asarray(a), tree
+    )
+
+
+def f32(t):
+    return t.float().numpy() if isinstance(t, torch.Tensor) else np.asarray(jnp.asarray(t, jnp.float32))
+
+
+def batch_np(seed, b, l, vocab):
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, vocab, (b, l), dtype=np.int32)
+    labels = np.roll(toks, -1, axis=1)
+    labels[0, 3] = labels[1, -1] = -1  # ignored positions
+    return {"tokens": toks, "labels": labels}
+
+
+def to_t(batch):
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+def to_j(batch):
+    return {k: jnp.asarray(v) for k, v in batch.items()}
+
+
+VARIANTS = {
+    "smoke": {},  # fp32, 1 layer, MHA
+    "gqa": {"n_heads": 4, "n_kv_heads": 2, "n_layers": 3},
+    "gqa-remat": {"n_heads": 4, "n_kv_heads": 2, "n_layers": 3, "remat": True},
+    "bf16": {"dtype": "bfloat16", "n_layers": 2},
+}
+
+
+def setup(kw):
+    jcfg = dataclasses.replace(jget(ARCH, smoke=True), **kw)
+    tcfg = dataclasses.replace(tget(ARCH, smoke=True), **kw)
+    jm = JModel(jcfg)
+    jp = jm.init(jax.random.key(0))
+    return jm, jp, TModel(tcfg, "cpu"), params_from_jax(host(jp), tcfg, "cpu")
+
+
+def assert_grads(tgrads, jgrads, tcfg, dtype):
+    tj = params_to_jax(tgrads, tcfg)
+    names = [n for n, _ in _bridge.tree_flatten_with_path(tj)]
+    assert len(names) == len(jax.tree.leaves(jgrads))
+    for name, a, b in zip(names, _bridge.tree_leaves(tj), jax.tree.leaves(jgrads)):
+        assert a.dtype == getattr(torch, dtype), name  # grads keep the params' dtype
+        a, b = f32(a), f32(b)
+        if dtype == "float32":
+            np.testing.assert_allclose(a, b, atol=1e-5, rtol=1e-4, err_msg=name)
+        else:
+            assert np.linalg.norm(a - b) <= TOL[dtype] * np.linalg.norm(b), name
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_loss_and_grads_match_value_and_grad(variant):
+    jm, jp, tm, tp = setup(VARIANTS[variant])
+    batch = batch_np(0, 2, 12, jm.cfg.vocab)
+    (jl, jmet), jg = jax.jit(jax.value_and_grad(jm.loss, has_aux=True))(jp, to_j(batch))
+    tg, tmet = make_grad_step(tm)(tp, to_t(batch))
+    assert sorted(tmet) == ["aux", "ce", "loss", "tokens"]
+    for k in ("loss", "ce"):
+        assert tmet[k].dtype == torch.float32
+        np.testing.assert_allclose(float(tmet[k]), float(jl if k == "loss" else jmet[k]),
+                                   rtol=TOL[jm.cfg.dtype], err_msg=k)
+    assert float(tmet["tokens"]) == float(jmet["tokens"]) == 2 * 12 - 2
+    assert float(tmet["aux"]) == float(jmet["aux"]) == 0.0
+    assert_grads(tg, jg, tm.cfg, jm.cfg.dtype)
+
+
+def test_loss_chunks_like_the_reference():
+    jm, jp, tm, tp = setup(VARIANTS["smoke"])
+    batch = batch_np(1, 2, 12, jm.cfg.vocab)
+    jl, _ = jm.loss(jp, to_j(batch), seq_chunk=5)  # chunks of 5, 5, 2
+    tl, _ = tm.loss(tp, to_t(batch), seq_chunk=5)
+    np.testing.assert_allclose(float(tl), float(jl), rtol=TOL["float32"])
+    whole, _ = tm.loss(tp, to_t(batch))
+    np.testing.assert_allclose(float(tl), float(whole), rtol=TOL["float32"])
+
+
+# The dense families of tests/test_models.py (the others are not ported yet).
+BASE = dict(n_layers=4, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128, vocab=512,
+            dtype="float32", remat=False)
+FAMILIES = {
+    "dense": BASE,
+    "relu2_layernorm_bias": {**BASE, "activation": "relu_sq", "norm": "layernorm", "qkv_bias": True},
+}
+
+
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_train_step_finite_grads(family):
+    jm = JModel(JConfig(name=family, **FAMILIES[family]))
+    jp = jm.init(jax.random.key(0))
+    tcfg = TConfig(name=family, **FAMILIES[family])
+    tm, tp = TModel(tcfg, "cpu"), params_from_jax(host(jp), tcfg, "cpu")
+    toks = np.random.default_rng(2).integers(0, tcfg.vocab, (2, 16), dtype=np.int32)
+    batch = {"tokens": toks, "labels": toks}
+    (jl, _), jg = jax.jit(jax.value_and_grad(jm.loss, has_aux=True))(jp, to_j(batch))
+    grads, metrics = make_grad_step(tm)(tp, to_t(batch))
+    assert bool(torch.isfinite(metrics["loss"]))
+    assert all(bool(torch.isfinite(g).all()) for g in _bridge.tree_leaves(grads))
+    assert sum(float(g.abs().sum()) for g in _bridge.tree_leaves(grads)) > 0.0
+    np.testing.assert_allclose(float(metrics["loss"]), float(jl), rtol=TOL["float32"])
+    assert_grads(grads, jg, tcfg, "float32")
+
+
+def test_label_masking():
+    _, _, tm, tp = setup(VARIANTS["smoke"])
+    toks = torch.from_numpy(np.random.default_rng(3).integers(0, 512, (2, 8), dtype=np.int32))
+    loss, metrics = tm.loss(tp, {"tokens": toks, "labels": torch.full_like(toks, -1)})
+    assert float(metrics["tokens"]) == 0.0
+    assert float(loss) == 0.0
+
+
+def test_remat_matches_no_remat():
+    kw = {**VARIANTS["gqa"], "n_layers": 4}
+    _, _, tm, tp = setup(kw)
+    tm2 = TModel(dataclasses.replace(tm.cfg, remat=True), "cpu")
+    batch = to_t(batch_np(4, 2, 8, 512))
+    g1, m1 = make_grad_step(tm)(tp, batch)
+    g2, m2 = make_grad_step(tm2)(tp, batch)
+    assert abs(float(m1["loss"]) - float(m2["loss"])) < 1e-5
+    assert max(float((a - b).abs().max()) for a, b in
+               zip(_bridge.tree_leaves(g1), _bridge.tree_leaves(g2))) < 1e-4
+
+
+def test_train_step_updates_params_as_the_reference():
+    from repro.launch.steps import make_train_step as jmake
+    from repro.optim import AdamWConfig as JAdamW
+    from repro.optim import adamw as jadamw
+    from repro_torch.optim import adamw as tadamw
+
+    jm, jp, tm, tp = setup(VARIANTS["gqa"])
+    batch = batch_np(5, 2, 12, jm.cfg.vocab)
+    jnew, _, jmet = jax.jit(jmake(jm, JAdamW(warmup_steps=2, total_steps=4)))(
+        jp, jadamw.init(jp), to_j(batch))
+    tnew, tst, tmet = make_train_step(tm, AdamWConfig(warmup_steps=2, total_steps=4))(
+        tp, tadamw.init(tp), to_t(batch))
+    assert int(tst.step) == 1
+    for k in ("loss", "grad_norm", "lr"):
+        np.testing.assert_allclose(float(tmet[k]), float(jmet[k]), rtol=1e-5, err_msg=k)
+    # AdamW's first step moves an element by lr·g/(|g| + eps), lr 1.5e-4 here:
+    # where |g| is near eps = 1e-8, the step's size follows the grad's last bits.
+    for a, b in zip(_bridge.tree_leaves(params_to_jax(tnew, tm.cfg)), jax.tree.leaves(jnew)):
+        np.testing.assert_allclose(f32(a), f32(b), atol=1e-5, rtol=1e-5)
+
+
+# -- the kernels under autograd ------------------------------------------------
+
+
+def _xw(seed, shape=(3, 5, 16)):
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).requires_grad_()
+    w = torch.from_numpy(rng.standard_normal(shape[-1:]).astype(np.float32) * 0.1).requires_grad_()
+    return x, w
+
+
+def test_kernel_function_takes_the_plain_vjp_exactly():
+    # The plain version stands in for the kernel: the Function's output
+    # carries its grad_fn, and its grads are autograd's of the plain version.
+    x, w = _xw(0)
+    y = kops.KernelWithPlainGrad.apply(kref.rmsnorm_ref, kref.rmsnorm_ref, {"eps": 1e-6}, x, w)
+    assert type(y.grad_fn).__name__ == "KernelWithPlainGradBackward"
+    dy = torch.from_numpy(np.random.default_rng(1).standard_normal(y.shape).astype(np.float32))
+    got = torch.autograd.grad(y, (x, w), dy)
+    want = torch.autograd.grad(kref.rmsnorm_ref(x, w), (x, w), dy)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    # only what requires grad gets one
+    x2 = x.detach()
+    y2 = kops.KernelWithPlainGrad.apply(kref.rmsnorm_ref, kref.rmsnorm_ref, {"eps": 1e-6}, x2, w)
+    (gw,) = torch.autograd.grad(y2, (w,), dy)
+    assert torch.equal(gw, torch.autograd.grad(kref.rmsnorm_ref(x2, w), (w,), dy)[0])
+
+
+@pytest.mark.parametrize("hkv", [2, 4])
+def test_flash_under_grad_takes_its_plain_vjp(hkv):
+    rng = np.random.default_rng(hkv)
+
+    def t(*s):
+        return torch.from_numpy(rng.standard_normal(s).astype(np.float32)).requires_grad_()
+
+    q, k, v = t(2, 7, 4, 16), t(2, 7, hkv, 16), t(2, 7, hkv, 16)
+    out = kops.flash_attention(q, k, v)  # model layout [B, L, H, d]
+    assert type(out.grad_fn).__name__ == "KernelWithPlainGradBackward"
+    dy = torch.from_numpy(rng.standard_normal(out.shape).astype(np.float32))
+    got = torch.autograd.grad(out, (q, k, v), dy)
+    want_out = kref.flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)).transpose(1, 2)
+    want = torch.autograd.grad(want_out, (q, k, v), dy)
+    assert torch.equal(out, want_out)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_wrappers_call_the_kernel_directly_without_grad_and_decode_raises_under_grad():
+    x, w = _xw(2)
+    with torch.no_grad():
+        assert kops.rmsnorm(x, w).grad_fn is None
+    assert kops.rmsnorm(x.detach(), w.detach()).grad_fn is None
+    assert kops.rmsnorm(x, w).grad_fn is not None
+    q = torch.zeros(2, 1, 4, 16, requires_grad=True)
+    cache = torch.zeros(2, 8, 2, 16)
+    with pytest.raises(RuntimeError, match="decode attention has no gradient"):
+        kops.decode_attention(q, cache, cache, 3)
+    with torch.inference_mode():
+        assert kops.decode_attention(q, cache, cache, 3).shape == (2, 1, 4, 16)
+
+
+def test_rmsnorm_plain_vjp_matches_jax_vjp():
+    from repro.models.layers import rms_norm as jrms
+
+    x, w = _xw(3, (4, 6, 32))
+    dy = np.random.default_rng(4).standard_normal((4, 6, 32)).astype(np.float32)
+    _, vjp = jax.vjp(lambda a, b: jrms(a, b, 1e-6), jnp.asarray(x.detach().numpy()),
+                     jnp.asarray(w.detach().numpy()))
+    jx, jw = vjp(jnp.asarray(dy))
+    y = kops.rmsnorm(x, w)
+    tx, tw = torch.autograd.grad(y, (x, w), torch.from_numpy(dy))
+    np.testing.assert_allclose(tx.numpy(), np.asarray(jx), atol=1e-5, rtol=1e-4)
+    np.testing.assert_allclose(tw.numpy(), np.asarray(jw), atol=1e-5, rtol=1e-4)
+
+
+def test_kernel_path_under_remat_counts_its_launches_and_matches_the_plain_path(monkeypatch):
+    """The card's training path, rehearsed on the CPU: layers take the kernel
+    wrappers (which return their plain versions for CPU tensors), under the
+    Function and remat.  Each fwdbwd calls rmsnorm 2L + 1 times forward and
+    2L in the recompute, flash L and L, decode never."""
+    kw = {**VARIANTS["gqa"], "remat": True}
+    _, _, tm, tp = setup(kw)
+    batch = to_t(batch_np(6, 2, 10, 512))
+    plain_g, plain_m = make_grad_step(tm)(tp, batch)
+
+    calls = {"rmsnorm": 0, "flash_attention": 0}
+
+    def counting(name, fn):
+        def call(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return call
+
+    monkeypatch.setattr(tlayers, "_use_kernel", lambda x: True)
+    monkeypatch.setattr(krmsnorm, "rmsnorm", counting("rmsnorm", krmsnorm.rmsnorm))
+    monkeypatch.setattr(kflash, "flash_attention", counting("flash_attention", kflash.flash_attention))
+    kern_g, kern_m = make_grad_step(tm)(tp, batch)
+    n = tm.cfg.n_layers
+    assert calls == {"rmsnorm": (2 * n + 1) + 2 * n, "flash_attention": 2 * n}
+    np.testing.assert_allclose(float(kern_m["loss"]), float(plain_m["loss"]), rtol=TOL["float32"])
+    for name, a in _bridge.tree_flatten_with_path(kern_g):
+        assert float(a.abs().max()) > 0.0, name  # every leaf has a gradient
+    for a, b in zip(_bridge.tree_leaves(kern_g), _bridge.tree_leaves(plain_g)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5, rtol=1e-4)
+
+
+# -- the trainer: the port's own integration cases -----------------------------
+
+
+@pytest.fixture(scope="module")
+def short_run(tmp_path_factory):
+    d = tmp_path_factory.mktemp("ckpt")
+    out = ttrain(ARCH, steps=8, ckpt_dir=str(d), device="cpu", **RUN)
+    return d, out
+
+
+def test_loss_decreases(short_run):
+    _, out = short_run
+    losses = [float(h["loss"]) for h in out["history"]]
+    assert min(losses[3:]) < losses[0]
+
+
+def test_checkpoint_written_and_resumes(short_run, tmp_path):
+    d, out = short_run
+    assert latest_step(d) == 8
+    shutil.copytree(d, tmp_path / "c")
+    out2 = ttrain(ARCH, steps=2, ckpt_dir=str(tmp_path / "c"), device="cpu", **RUN)
+    assert len(out2["history"]) == 2
+    assert int(out2["opt"].step) == 10 and latest_step(tmp_path / "c") == 10
+
+
+def test_pods_agree_with_single_pod():
+    run = {**RUN, "n_pods": 1}
+    a = ttrain(ARCH, steps=3, ckpt_dir=None, compress_grads=False, device="cpu", **run)
+    b = ttrain(ARCH, steps=3, ckpt_dir=None, compress_grads=False, device="cpu", **RUN)
+    diffs = [float((x - y).abs().max()) for x, y in
+             zip(_bridge.tree_leaves(a["params"]), _bridge.tree_leaves(b["params"]))]
+    assert max(diffs) < 1e-5
+
+
+def test_compressed_training_tracks_uncompressed():
+    a = ttrain(ARCH, steps=6, ckpt_dir=None, compress_grads=False, device="cpu", **RUN)
+    b = ttrain(ARCH, steps=6, ckpt_dir=None, compress_grads=True, device="cpu", **RUN)
+    la, lb = float(a["history"][-1]["loss"]), float(b["history"][-1]["loss"])
+    assert abs(la - lb) / la < 0.05
+
+
+def test_an_iteration_passes_the_trees_by_reference():
+    # The backend's store places tensors and arrays only: the params and
+    # optimizer trees (dicts, a NamedTuple) and the numpy batch (a dict) reach
+    # the steps as the very objects given, so no iteration copies the model.
+    tr = Trainer(tget(ARCH, smoke=True), steps=1, n_pods=2, global_batch=4, seq_len=8,
+                 ckpt_dir=None, device="cpu")
+    fns, seen = tr.step_fns(), {}
+    for name in ("fwdbwd_1", "update_0"):
+        def spy(inputs, name=name, inner=fns[name]):
+            seen[name] = inputs
+            return inner(inputs)
+        fns[name] = spy
+    payloads = {}
+    for i in range(2):
+        payloads[(f"pod{i}", f"iter_{i}")] = 0
+        payloads[(f"pod{i}", f"params_{i}")] = tr.params
+        payloads[(f"pod{i}", f"opt_{i}")] = tr.opt_state
+    res = tr.lowered.compile(fns).run(initial_payloads=payloads)
+    assert seen["fwdbwd_1"]["params_1"] is tr.params
+    assert seen["update_0"]["opt_0"] is tr.opt_state
+    assert isinstance(seen["fwdbwd_1"]["batch_1"]["tokens"], np.ndarray)
+    assert res.stats["device_puts"] == 0 and res.stats["bytes_moved"] == 0
+    assert res.stats["policy"] == {"retries": 0, "timeouts": 0}  # FaultPolicy(max_retries=2)
+
+
+# -- the slice as a whole: resume both packages from one reference checkpoint ---
+
+
+@pytest.fixture(scope="module")
+def reference_checkpoint(tmp_path_factory):
+    d = tmp_path_factory.mktemp("ref_ckpt")
+    jtrain(ARCH, steps=3, ckpt_dir=str(d / "base"), **RUN)
+    return d
+
+
+@pytest.mark.parametrize("compress", [False, True])
+def test_port_resumes_a_reference_checkpoint_as_the_reference_does(reference_checkpoint, compress):
+    d = reference_checkpoint
+    jd, td = d / f"j{compress}", d / f"t{compress}"
+    shutil.copytree(d / "base", jd)
+    shutil.copytree(d / "base", td)
+    a = jtrain(ARCH, steps=2, ckpt_dir=str(jd), compress_grads=compress, **RUN)
+    b = ttrain(ARCH, steps=2, ckpt_dir=str(td), compress_grads=compress, device="cpu", **RUN)
+    assert len(a["history"]) == len(b["history"]) == 2
+    for ha, hb in zip(a["history"], b["history"]):
+        assert sorted(ha) == sorted(hb)
+        for k in ("loss", "ce", "grad_norm", "lr"):
+            np.testing.assert_allclose(hb[k], ha[k], rtol=TOL["float32"], err_msg=k)
+        assert hb["tokens"] == ha["tokens"]
+    tol = 1e-4 if compress else 1e-5
+    cfg = tget(ARCH, smoke=True)
+    for a_, b_ in zip(_bridge.tree_leaves(params_to_jax(b["params"], cfg)), jax.tree.leaves(a["params"])):
+        assert float(np.max(np.abs(f32(a_) - f32(b_)))) < tol
+    # both wrote step 5 with the same leaves, shapes and dtypes
+    import json
+
+    mj = json.loads((jd / "step_000000005" / "manifest.json").read_text())
+    mt = json.loads((td / "step_000000005" / "manifest.json").read_text())
+    assert mt == mj
+
+
+# -- the entry point -------------------------------------------------------------
+
+
+def test_cli_trains_on_the_cpu(monkeypatch, capsys):
+    monkeypatch.setattr(sys, "argv", ["train", "--device", "cpu", "--smoke", "--steps", "2", "--pods", "2"])
+    tmain()
+    out = capsys.readouterr().out
+    assert "[swirl] plan: 12 actions, 4 comms" in out and "[done] 2 steps" in out
+
+
+def test_train_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        ttrain(ARCH, steps=1, ckpt_dir=None, **RUN)
