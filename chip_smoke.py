@@ -21,7 +21,10 @@ Phases, each of which exits nonzero on failure:
    rmsnorm's [8192, 3072] and [64, 256] (bf16, and fp32 as the data plane
    of phase 7 runs them), and compute the card's bound for
    the same work; time rmsnorm's launch floor (an empty kernel on the same
-   grid) and its wrapper's host time a call.  Times print in microseconds.
+   grid) and its wrapper's host time a call.  Flash and decode are also
+   held and timed at the MoE archs' serving shapes (granite: Hq 16, Hkv 8,
+   d 64; deepseek: Hq 16, Hkv 16, d 128; Lq 128 over a cache of 160), and
+   rmsnorm at their widths, 1024 and 2048.  Times print in microseconds.
 4. Serve llama3.2-3b at full width (28 layers, d 3072, vocab 128256, bf16,
    random weights from seed 0) through ``repro_torch.launch.serve.serve`` on
    ``cuda``, with every launch count zeroed just before and read just after.
@@ -83,6 +86,26 @@ Phases, each of which exits nonzero on failure:
    bit for bit, a CPU model's loss at it must match the card's, and a new
    trainer must resume from it for one step.
 
+10. MoE on the card: serve granite-moe-1b-a400m (24 layers, d 1024, 32
+   experts top-8) and deepseek-moe-16b (28 layers, d 2048, 64 routed experts
+   top-6 and 2 shared, layer 0 dense) at full width through ``serve`` on
+   ``cuda`` (bf16, random weights from seed 0, phase 4's batch, prompt and
+   length), each model freed before the next is made, with exact launch
+   counts for the whole ``serve`` call and, from counts of 0, for one
+   prefill and each decode step.  Prefill + 4 decode steps are rerun on the
+   plain path: free (its own routing, printed) and with routing forced to
+   the kernel path's (:class:`RouteTape`), where the logits must agree
+   within MOE_REL_L2_TOL, the plain path's own top-k with the kernel path's
+   on ROUTE_AGREE of the choices of every MoE layer, and the kernel path
+   must be at most F32_RATIO times as far from the plain path in fp32 as
+   the plain bf16 path.  Decode is profiled as in phase 6 beside the step's
+   bound (every weight read once).  Then granite-moe trains at full width
+   and depth through ``Trainer`` (phase 9's pods, batch and sequence): one
+   iteration from counts of 0 must launch rmsnorm 2 x (49 + 48), flash
+   2 x (24 + 24) and decode 0, give a finite loss and grad norm and aux > 0
+   and change every leaf (the fp32 routers included); one fwdbwd is held as
+   in phase 9 with routing forced.
+
 ``python3 chip_smoke.py --rmsnorm-times ROOT`` only times the rmsnorm
 wrapper of the checkout at ROOT (see :func:`rmsnorm_times`), and
 ``--dataplane-times ROOT`` only its untraced data plane (see
@@ -91,7 +114,7 @@ checkouts at A and B in alternating pairs (see :func:`dataplane_compare`).
 
 The line before the last is the kernels' JSON record (each kernel's
 launches on each path under ``launches_by_path``), the data plane's,
-the traced phase's and training's numbers above the card's name; the last line is
+the traced phase's, training's and the MoE phase's numbers above the card's name; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 rest of the repository beside it, it exits nonzero and prints no result.
 """
@@ -99,6 +122,7 @@ rest of the repository beside it, it exits nonzero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import re
@@ -123,12 +147,44 @@ REL_L2_TOL = 2e-2  # bf16 end to end through 28 layers, plain vs kernel path
 ATTN_REL_L2_TOL = 1e-2
 # rmsnorm's checks on the card: the zoo's widths from 256 (the data plane)
 # to 8192, and two that are not a whole number of 16-byte pieces.
-RMS_WIDTHS = (256, 768, 896, 1000, 1001, 2048, 3072, 4608, 8192, 3)
+RMS_WIDTHS = (256, 768, 896, 1000, 1001, 1024, 2048, 3072, 4608, 8192, 3)
 RMS_ROWS = (1, 4, 5, 33, 512, 8192)
 # rmsnorm's timed shapes (bf16): prefill and decode of the serving cell, a
 # 2048-token prefill, and the data plane's (64, 256).
 RMS_SHAPES = ((BATCH * PROMPT_LEN, 3072), (BATCH, 3072), (8192, 3072), (64, 256))
 F32_RATIO = 1.25  # kernel path's distance to the fp32 plain path over the bf16 plain path's
+# Phase 10: the MoE archs, and their attention at the serving shapes (batch
+# BATCH, prompt PROMPT_LEN, cache PROMPT_LEN + GEN): (query heads, KV heads,
+# head_dim, d_model).  granite: GQA group 2 at d 64; deepseek: MHA at d 128.
+MOE_ARCHS = ("granite-moe-1b-a400m", "deepseek-moe-16b")
+MOE_ATTN = {"granite-moe-1b-a400m": (16, 8, 64, 1024), "deepseek-moe-16b": (16, 16, 128, 2048)}
+# Phase 10's routing check, set before its first run.  Two bf16 paths round
+# differently, and rounding can flip a near-tie between a token's k-th and
+# (k+1)-th expert.  The router's logits are about N(0, 1) (a unit-RMS input,
+# 1/sqrt(d) weights), so the gap after the k-th is about 1 / (E f(z_k)) ~ 0.1
+# for both archs (f the normal density at the top-k quantile), and a relative
+# difference d of the router's input flips the last choice of ~11 d of the
+# tokens, 1/k of that share of the choices.  d between the paths is at most
+# ~2e-2 (phase 5: llama's logits, 1.87e-2 apart), so ~3 % of granite's
+# choices (k 8) and ~4 % of deepseek's (k 6) may flip; a wrong kernel leaves
+# about k/E of them standing (25 % and 9 %).  A flip moves its token by a
+# tenth or so of its MoE output, and in a free run that token (and those that
+# attend to it) then drifts further, layer after layer: so the free runs'
+# agreement is printed, not held.  The check is on a forced run, in which the
+# plain path routes as the kernel path did (:class:`RouteTape`) and its own
+# top-k on the same inputs must agree with the kernel path's on at least
+# ROUTE_AGREE of the (token, choice) decisions in every MoE layer.
+ROUTE_AGREE = 0.9
+# The forced run's last-position logits against the kernel path's, by
+# relative L2.  Rounding alone set llama's at 1.87e-2 (each path 1.6e-2 from
+# fp32, phase 5); a new arch's floor is not known before its first run, so
+# this bound is loose by about 2.5x, and the tight test is the one against
+# fp32: the kernel path at most F32_RATIO times as far as the plain bf16 path.
+MOE_REL_L2_TOL = 5e-2
+# Training granite-moe at full width and depth (24 layers, 1.33 B params):
+# T-full's pods, batch and sequence; one iteration counted from launch counts
+# of 0 (and checked), then MOE_TRAIN_TIMED timed.
+MOE_TRAIN_ARCH, MOE_TRAIN_TIMED = "granite-moe-1b-a400m", 2
 # Phase 7, the data plane: the reference benchmark's 12-step pipeline
 # (benchmarks/run.py, rmsnorm on steps k = 0, 4, 8), at its own (64, 256)
 # and at llama3.2-3b's width for a 2048-token prefill at batch 4, and the
@@ -430,6 +486,37 @@ def phase_kernels(torch, bench: Bench) -> dict:
                                                             q_offset=37), v, 137, dtype)
         check("flash_attention", f"flash {str(dtype)[6:]} contiguous Lq=100 q_offset=37", got, want, dtype, fp32)
 
+    # -- flash and decode at the MoE archs' serving shapes (phase 10): a
+    # prefill of PROMPT_LEN rows over a cache of PROMPT_LEN + GEN, and decode
+    # at every kv_len edge of that cache; model layout, poisoned past kv_len.
+    for arch, (hq, hkv, d, _) in MOE_ATTN.items():
+        m = PROMPT_LEN + GEN
+        for dtype in (torch.bfloat16, torch.float32):
+            q = randn(B, PROMPT_LEN, hq, d, dtype=dtype)
+            k = randn(B, m, hkv, d, dtype=dtype)
+            v = randn(B, m, hkv, d, dtype=dtype)
+            qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+            want = ref.flash_attention_ref(qt, kt, vt, causal=True, kv_len=PROMPT_LEN)
+            fp32 = fp32_refs(lambda vv: ref.flash_attention_ref(qt.float(), kt.float(), vv, causal=True,
+                                                                kv_len=PROMPT_LEN), vt, PROMPT_LEN, dtype)
+            for value in POISON:
+                kp, vp = poisoned(k, PROMPT_LEN, value), poisoned(v, PROMPT_LEN, value)
+                got = flash_attention(qt, kp.transpose(1, 2), vp.transpose(1, 2), causal=True,
+                                      kv_len=i32(PROMPT_LEN), q_offset=i32(0))
+                check("flash_attention", f"flash {str(dtype)[6:]} {arch} B{B} Hq{hq} Hkv{hkv} d{d} "
+                      f"Lq={PROMPT_LEN} cache {m} (strided, poison {value:g})", got, want, dtype, fp32)
+            chunk = split_chunk(m, B, hkv, sms)
+            qd = randn(B, hq, d, dtype=dtype)
+            for kv in sorted({1, chunk - 1, chunk, chunk + 1, PROMPT_LEN + 1, m - 1, m} & set(range(1, m + 1))):
+                want = ref.decode_attention_ref(qd, kt, vt, kv)
+                fp32 = fp32_refs(lambda vv: ref.decode_attention_ref(qd.float(), kt.float(), vv, kv), vt, kv, dtype)
+                for value in POISON:
+                    kp, vp = poisoned(k, kv, value), poisoned(v, kv, value)
+                    got = decode_attention(qd, kp.transpose(1, 2), vp.transpose(1, 2), i32(kv))
+                    check("decode_attention", f"decode {str(dtype)[6:]} {arch} cache [{B}, {m}, {hkv}, {d}] "
+                          f"({-(-m // chunk)} splits of {chunk}) kv_len={kv} poison {value:g}", got, want, dtype, fp32)
+        del q, k, v, qt, kt, vt, qd, want, kp, vp, got, fp32
+
     # -- decode: poisoned caches with one split and many ------------------------
     for dtype in (torch.bfloat16, torch.float32):
         for m in (2048, 160, 64):
@@ -639,10 +726,52 @@ def phase_kernels(torch, bench: Bench) -> dict:
             lambda: F.scaled_dot_product_attention(q[:, :, None], k, v, enable_gqa=True),
             (2 * B * HQ + 2 * B * HKV * m) * D * es, 4 * D * B * HQ * m, "bf16",
         )
+
+    # The MoE archs' serving shapes (phase 10): each norm of a prefill and of
+    # a decode step, the prefill's flash and the last decode step's attention.
+    for arch, (hq, hkv, d, dm) in MOE_ATTN.items():
+        for n in (BATCH * PROMPT_LEN, BATCH):
+            x = randn(n, dm, dtype=bf)
+            w = randn(dm, dtype=bf) * 0.1
+            w1 = 1.0 + w
+            record(
+                "rmsnorm", f"[{n}, {dm}] ({arch})",
+                lambda: rmsnorm(x, w), lambda: ref.rmsnorm_ref(x, w),
+                lambda: F.rms_norm(x, (dm,), weight=w1, eps=1e-6),
+                (2 * n * dm + dm) * es, 4 * n * dm, "fp32",
+            )
+        lq = PROMPT_LEN
+        q = randn(B, lq, hq, d, dtype=bf).transpose(1, 2)
+        k = randn(B, lq + GEN, hkv, d, dtype=bf).transpose(1, 2)
+        v = randn(B, lq + GEN, hkv, d, dtype=bf).transpose(1, 2)
+        off, kv = i32(0), i32(lq)
+        record(
+            "flash_attention", f"B{B} Hq{hq} Hkv{hkv} d{d} Lq=kv={lq} ({arch})",
+            lambda: flash_attention(q, k, v, causal=True, kv_len=kv, q_offset=off),
+            lambda: ref.flash_attention_ref(q, k, v, causal=True, kv_len=kv, q_offset=off),
+            lambda: F.scaled_dot_product_attention(
+                q, k[:, :, :lq], v[:, :, :lq], is_causal=True, enable_gqa=True
+            ),
+            (2 * B * hq * lq + 2 * B * hkv * lq) * d * es,
+            4 * d * B * hq * (lq * (lq + 1) // 2), "bf16",
+        )
+        m = cache_len
+        qd = randn(B, hq, d, dtype=bf)
+        kd = randn(B, m, hkv, d, dtype=bf).transpose(1, 2)
+        vd = randn(B, m, hkv, d, dtype=bf).transpose(1, 2)
+        kvd = i32(m)
+        record(
+            "decode_attention", f"B{B} Hq{hq} Hkv{hkv} d{d} kv={m} ({arch})",
+            lambda: decode_attention(qd, kd, vd, kvd),
+            lambda: ref.decode_attention_ref(qd, kd, vd, kvd),
+            lambda: F.scaled_dot_product_attention(qd[:, :, None], kd, vd, enable_gqa=True),
+            (2 * B * hq + 2 * B * hkv * m) * d * es, 4 * d * B * hq * m, "bf16",
+        )
+        del q, k, v, qd, kd, vd
     return rows
 
 
-def profile_decode(torch, model, params, prompts, steps: int = 8) -> None:
+def profile_decode(torch, model, params, prompts, smi: str, steps: int = 8, tag: str = "6") -> dict:
     """Phase 6: torch.profiler over ``steps`` greedy decode steps of the kernel path.
 
     Prints the host's wall time a step (timed without the profiler), the
@@ -650,6 +779,8 @@ def profile_decode(torch, model, params, prompts, steps: int = 8) -> None:
     operations that take the most time (from a second, profiled run), and
     rmsnorm's rows: its kernel's device time and its wrapper's host time (a
     ``record_function`` span around the wrapper, in the profiled run only).
+    Returns those numbers; ``tag`` heads the printed lines, and ``smi``
+    (the card's name and power limit) ends them.
     """
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -699,11 +830,11 @@ def profile_decode(torch, model, params, prompts, steps: int = 8) -> None:
     dev.sort(key=lambda d: -d[1])
     busy_ms = sum(d[1] for d in dev)
     n_kernels = sum(d[2] for d in dev)
-    print(f"[6] warm prefill, kernel path: {prefill_ms:.3f} ms for {BATCH} x {PROMPT_LEN} tokens")
+    print(f"[{tag}] warm prefill, kernel path: {prefill_ms:.3f} ms for {BATCH} x {PROMPT_LEN} tokens  ({smi})")
     print(
-        f"[6] decode step, kernel path: wall {wall_ms:.3f} ms a step (unprofiled); "
+        f"[{tag}] decode step, kernel path: wall {wall_ms:.3f} ms a step (unprofiled); "
         f"profiled: {n_kernels:.0f} device ops a step taking {busy_ms:.3f} ms, "
-        f"device busy {busy_ms / wall_ms:.1%} of the wall time"
+        f"device busy {busy_ms / wall_ms:.1%} of the wall time  ({smi})"
     )
     for key, ms, n in dev[:10]:
         print(f"  {ms:8.4f} ms a step  x{n:<4.0f} {key[:90]}")
@@ -718,8 +849,11 @@ def profile_decode(torch, model, params, prompts, steps: int = 8) -> None:
         e = span[0]
         host_s = (f"{e.cpu_time_total / 1e3 / steps:.3f} ms a step over {e.count / steps:.0f} calls, "
                   f"{e.cpu_time_total / e.count:.3g} us a call (profiled)")
-    print(f"[6] rmsnorm in a decode step: device {rms_ms:.4f} ms over {rms_n:.0f} launches "
+    print(f"[{tag}] rmsnorm in a decode step: device {rms_ms:.4f} ms over {rms_n:.0f} launches "
           f"({rms_ms / busy_ms:.1%} of device time); host, wrapper span: {host_s}")
+    return {"warm_prefill_ms": prefill_ms, "step_wall_ms": wall_ms, "step_device_ops": n_kernels,
+            "step_device_ms": busy_ms, "busy_share": busy_ms / wall_ms,
+            "top_device": [[k[:90], ms, n] for k, ms, n in dev[:10]]}
 
 
 def dp_pipeline(swirl, make_instance, make_workflow):
@@ -1225,15 +1359,122 @@ def kernel_family(name: str) -> str:
 
 def train_flops(cfg, tokens: int, seq: int) -> float:
     """Operations an iteration counts, the formula PERF.md states: 6 N T for
-    the matmuls (N = the blocks' and the tied head's weights), 2 N_blocks T
-    for remat's recomputed block forward, and causal attention's QK^T and
-    P.V, 2 B Hq L^2 d a layer forward, four times (forward, recompute and
-    a backward of twice the forward)."""
-    d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
-    n_block = cfg.n_layers * (2 * d * qd + 2 * d * kvd + 3 * d * cfg.d_ff)
+    the matmuls (N = the blocks' and the tied head's weights that a token
+    uses: of a MoE FFN, its router, its k routed experts and its shared
+    ones), 2 N_blocks T for remat's recomputed block forward, and causal
+    attention's QK^T and P.V, 2 B Hq L^2 d a layer forward, four times
+    (forward, recompute and a backward of twice the forward)."""
+    d, qd, kvd, m = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.moe
+
+    def ffn(kind: str) -> int:
+        if kind == "moe":
+            return d * m.n_experts + (m.top_k + m.n_shared) * 3 * d * m.d_expert
+        return 0 if kind == "none" else 3 * d * cfg.d_ff
+
+    n_block = sum(2 * d * qd + 2 * d * kvd + ffn(f) for _, f in cfg.layer_seq())
     n_head = d * cfg.vocab
     attn_fwd = cfg.n_layers * 2 * (tokens // seq) * cfg.n_heads * seq * seq * cfg.head_dim
     return 6 * (n_block + n_head) * tokens + 2 * n_block * tokens + 4 * attn_fwd
+
+
+def profiled_iteration(torch, tr, it: int, median_ms: float, tag: str, smi: str, sku: str):
+    """Iteration ``it`` of trainer ``tr`` under ``torch.profiler``: device ms
+    by kernel family, and the share of bf16 peak that the counted operations
+    (:func:`train_flops`) reach at ``median_ms`` an iteration.  Prints both;
+    returns ``(families, operations, share)``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tr.iteration(it)
+        torch.cuda.synchronize()
+    fam: dict = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            f = kernel_family(e.key)
+            fam[f] = fam.get(f, 0.0) + e.device_time_total / 1e3
+    dev_ms = sum(fam.values())
+    flops = train_flops(tr.cfg, TRAIN_BATCH * TRAIN_SEQ, TRAIN_SEQ)
+    share = flops / (median_ms / 1e3) / PEAKS[sku]["bf16"]
+    split = ", ".join(f"{k} {v:.2f} ms ({v / dev_ms:.1%})"
+                      for k, v in sorted(fam.items(), key=lambda kv: -kv[1])) if dev_ms else "none recorded"
+    print(f"[{tag}] one profiled iteration: device {dev_ms:.2f} ms: {split}  ({smi})")
+    print(f"[{tag}] counted operations {flops:.4e} an iteration: {flops / (median_ms / 1e3) / 1e12:.1f} TFLOP/s, "
+          f"{share:.2%} of {PEAKS[sku]['bf16'] / 1e12:.0f} TFLOP/s bf16  ({smi})")
+    return fam, flops, share
+
+
+def hold_fwdbwd(torch, tag: str, label: str, cfg, params, batch, grad_fn, tape=None) -> dict:
+    """One fwdbwd of ``grad_fn`` on the kernel path against the plain path, and
+    both against the plain path in fp32 on the same (bf16-valued) weights:
+    the loss within TRAIN_LOSS_RTOL, each grad leaf within GRAD_REL_L2_TOL by
+    relative L2, every kernel-path leaf nonzero and finite, and the kernel
+    path's whole gradient at most F32_RATIO times as far from fp32 as the
+    plain bf16 path's.  With a :class:`RouteTape`, the plain and fp32 runs
+    route each MoE call as the kernel run did.  Returns the numbers."""
+    from repro_torch._bridge import tree_flatten_with_path, tree_leaves, tree_map
+    from repro_torch.launch.steps import make_grad_step
+    from repro_torch.models import Model, set_attn_impl
+
+    def record():
+        return tape.record() if tape is not None else contextlib.nullcontext([])
+
+    def replay(calls):
+        return tape.replay(calls) if tape is not None else contextlib.nullcontext([])
+
+    with record() as rec:
+        gk, mk = grad_fn(params, batch)
+    set_attn_impl("plain")
+    try:
+        with replay(rec) as own:
+            gp, mp = grad_fn(params, batch)
+        m32 = Model(dataclasses.replace(cfg, dtype="float32"), "cuda")
+        with replay(rec):
+            g32, m32m = make_grad_step(m32)(tree_map(lambda t: t.float(), params), batch)
+    finally:
+        set_attn_impl(None)
+    names = [n for n, _ in tree_flatten_with_path(gk)]
+    bad = [n for n, g in zip(names, tree_leaves(gk)) if not (bool(g.isfinite().all()) and float(g.abs().max()) > 0)]
+    if bad:
+        fail(f"{label}: {len(bad)} grad leaves are zero or non-finite on the kernel path: {bad[:4]}")
+    lk, lp, l32 = float(mk["loss"]), float(mp["loss"]), float(m32m["loss"])
+    rels = {n: rel_l2(a, b.float()) for n, a, b in zip(names, tree_leaves(gk), tree_leaves(gp))}
+    k32 = {n: rel_l2(a, b) for n, a, b in zip(names, tree_leaves(gk), tree_leaves(g32))}
+    p32 = {n: rel_l2(a, b) for n, a, b in zip(names, tree_leaves(gp), tree_leaves(g32))}
+
+    def whole_rel_l2(gs) -> float:  # of all leaves as one vector, a leaf at a time
+        num = sum(float((a.float() - b).norm()) ** 2 for a, b in zip(tree_leaves(gs), tree_leaves(g32)))
+        return (num / sum(float(b.norm()) ** 2 for b in tree_leaves(g32))) ** 0.5
+
+    wk, wp = whole_rel_l2(gk), whole_rel_l2(gp)
+    worst = max(rels, key=rels.get)
+    routed = ""
+    out = {"loss": {"kernel": lk, "plain": lp, "fp32": l32}, "grad_rel_l2_max": rels[worst],
+           "fp32_ratio": wk / wp}
+    if tape is not None:
+        agree = route_agreement(rec, own, 1)[0]
+        out.update(aux={"kernel": float(mk["aux"]), "plain": float(mp["aux"]), "fp32": float(m32m["aux"])},
+                   forced_route_agreement=agree)
+        routed = (f"; the plain and fp32 runs route as the kernel run ({len(rec)} MoE calls; the plain "
+                  f"path's own top-k agrees on {agree:.2%} of choices); aux {float(mk['aux']):.6f} vs "
+                  f"{float(mp['aux']):.6f} (fp32 {float(m32m['aux']):.6f})")
+    print(f"[{tag}] fwdbwd kernel vs plain: loss {lk:.6f} vs {lp:.6f} (fp32 {l32:.6f}), rel "
+          f"{abs(lk - lp) / abs(lp):.3e} (tol {TRAIN_LOSS_RTOL:g}); grads: {len(names)} leaves, all "
+          f"nonzero and finite; max rel L2 {rels[worst]:.3e} at {worst} (tol {GRAD_REL_L2_TOL:g}){routed}")
+    print(f"[{tag}] against fp32: whole gradient rel L2 kernel {wk:.3e}, plain bf16 {wp:.3e}, ratio "
+          f"{wk / wp:.3f} (tol {F32_RATIO:g}); per leaf, kernel/plain ratio max "
+          f"{max(k32[n] / p32[n] for n in names):.3f}, min {min(k32[n] / p32[n] for n in names):.3f}")
+    for nm in sorted(names, key=rels.get)[-5:]:
+        print(f"  {nm}: vs plain {rels[nm]:.3e}; vs fp32 kernel {k32[nm]:.3e}, plain {p32[nm]:.3e}")
+    # Written so that a NaN fails each test.
+    if not (abs(lk - lp) / abs(lp) <= TRAIN_LOSS_RTOL and all(r <= GRAD_REL_L2_TOL for r in rels.values())):
+        fail(f"{label}: the kernel path's fwdbwd disagrees with the plain path")
+    if not wk <= F32_RATIO * wp:
+        fail(f"{label}: the kernel path's gradient is {wk / wp:.3f}x as far from fp32 as the plain path's")
+    if tape is not None and not agree >= ROUTE_AGREE:
+        fail(f"{label}: the plain path's own routing agrees with the kernel path's on {agree:.2%} of "
+             f"choices (at least {ROUTE_AGREE:.0%})")
+    return out
 
 
 def phase_train(torch, smi: str, sku: str) -> dict:
@@ -1242,16 +1483,12 @@ def phase_train(torch, smi: str, sku: str) -> dict:
     back on the CPU bit for bit, and training resumes from it."""
     import shutil
 
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch._bridge import to_torch, tree_flatten_with_path, tree_leaves, tree_map
     from repro_torch.ckpt import latest_step, load_checkpoint
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops as kops
-    from repro_torch.launch.steps import make_grad_step
     from repro_torch.launch.train import Trainer, checkpoint_tree
-    from repro_torch.models import Model, params_from_jax, set_attn_impl
+    from repro_torch.models import Model, params_from_jax
 
     sync = torch.cuda.synchronize
     cfg = dataclasses.replace(get_config(ARCH), n_layers=TRAIN_LAYERS)
@@ -1311,27 +1548,12 @@ def phase_train(torch, smi: str, sku: str) -> dict:
         step_ms[name.split("_")[0]] += (time.perf_counter() - t0) * 1e3
     del env, fns
     # One profiled iteration: device time by family.
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        tr.iteration(it + 1)
-        sync()
-    fam: dict = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            f = kernel_family(e.key)
-            fam[f] = fam.get(f, 0.0) + e.device_time_total / 1e3
-    dev_ms = sum(fam.values())
     med = statistics.median(iter_ms)
-    flops = train_flops(cfg, tokens, TRAIN_SEQ)
-    share = flops / (med / 1e3) / PEAKS[sku]["bf16"]
     print(f"[9] ms an iteration {fmt_ms(iter_ms)}, median {med:.2f} ms; {tokens / med * 1e3:.1f} tokens/s; "
           f"peak memory {peak_gb:.2f} GB  ({smi})")
     print(f"[9] steps of one iteration (host clock, synchronised): "
           + ", ".join(f"{k} {v:.2f} ms" for k, v in step_ms.items()) + f"  ({smi})")
-    split = ", ".join(f"{k} {v:.2f} ms ({v / dev_ms:.1%})"
-                      for k, v in sorted(fam.items(), key=lambda kv: -kv[1])) if dev_ms else "none recorded"
-    print(f"[9] one profiled iteration: device {dev_ms:.2f} ms: {split}  ({smi})")
-    print(f"[9] counted operations {flops:.4e} an iteration: {flops / (med / 1e3) / 1e12:.1f} TFLOP/s, "
-          f"{share:.2%} of {PEAKS[sku]['bf16'] / 1e12:.0f} TFLOP/s bf16  ({smi})")
+    fam, flops, share = profiled_iteration(torch, tr, it + 1, med, "9", smi, sku)
 
     # One fwdbwd: the kernel path against the plain path, and both against fp32
     # (the trainer's moments and error feedback go first, to make room).
@@ -1339,41 +1561,8 @@ def phase_train(torch, smi: str, sku: str) -> dict:
     batch = {k: to_torch(v, "cuda") for k, v in tr.dataset.batch(0, 0, TRAIN_PODS).items()}
     del tr
     torch.cuda.empty_cache()
-    gk, mk = grad_fn(params, batch)
-    set_attn_impl("plain")
-    try:
-        gp, mp = grad_fn(params, batch)
-        m32 = Model(dataclasses.replace(cfg, dtype="float32"), "cuda")
-        g32, m32m = make_grad_step(m32)(tree_map(lambda t: t.float(), params), batch)
-    finally:
-        set_attn_impl(None)
-    names = [n for n, _ in tree_flatten_with_path(gk)]
-    bad = [n for n, g in zip(names, tree_leaves(gk)) if not (bool(g.isfinite().all()) and float(g.abs().max()) > 0)]
-    if bad:
-        fail(f"T-full: {len(bad)} grad leaves are zero or non-finite on the kernel path: {bad[:4]}")
-    lk, lp, l32 = float(mk["loss"]), float(mp["loss"]), float(m32m["loss"])
-    rels = {n: rel_l2(a, b.float()) for n, a, b in zip(names, tree_leaves(gk), tree_leaves(gp))}
-    k32 = {n: rel_l2(a, b) for n, a, b in zip(names, tree_leaves(gk), tree_leaves(g32))}
-    p32 = {n: rel_l2(a, b) for n, a, b in zip(names, tree_leaves(gp), tree_leaves(g32))}
-    def whole_rel_l2(gs) -> float:  # of all leaves as one vector, a leaf at a time
-        num = sum(float((a.float() - b).norm()) ** 2 for a, b in zip(tree_leaves(gs), tree_leaves(g32)))
-        return (num / sum(float(b.norm()) ** 2 for b in tree_leaves(g32))) ** 0.5
-
-    wk, wp = whole_rel_l2(gk), whole_rel_l2(gp)
-    worst = max(rels, key=rels.get)
-    print(f"[9] fwdbwd kernel vs plain: loss {lk:.6f} vs {lp:.6f} (fp32 {l32:.6f}), rel "
-          f"{abs(lk - lp) / abs(lp):.3e} (tol {TRAIN_LOSS_RTOL:g}); grads: {len(names)} leaves, all "
-          f"nonzero and finite; max rel L2 {rels[worst]:.3e} at {worst} (tol {GRAD_REL_L2_TOL:g})")
-    print(f"[9] against fp32: whole gradient rel L2 kernel {wk:.3e}, plain bf16 {wp:.3e}, ratio "
-          f"{wk / wp:.3f} (tol {F32_RATIO:g}); per leaf, kernel/plain ratio max "
-          f"{max(k32[n] / p32[n] for n in names):.3f}, min {min(k32[n] / p32[n] for n in names):.3f}")
-    for nm in sorted(names, key=rels.get)[-5:]:
-        print(f"  {nm}: vs plain {rels[nm]:.3e}; vs fp32 kernel {k32[nm]:.3e}, plain {p32[nm]:.3e}")
-    if abs(lk - lp) / abs(lp) > TRAIN_LOSS_RTOL or rels[worst] > GRAD_REL_L2_TOL:
-        fail("T-full: the kernel path's fwdbwd disagrees with the plain path")
-    if wk > F32_RATIO * wp:
-        fail(f"T-full: the kernel path's gradient is {wk / wp:.3f}x as far from fp32 as the plain path's")
-    del gk, gp, g32, m32, params
+    held = hold_fwdbwd(torch, "9", "T-full", cfg, params, batch, grad_fn)
+    del params
     torch.cuda.empty_cache()
 
     # 9b: a checkpoint written on the card through the trainer's ckpt step.
@@ -1416,8 +1605,347 @@ def phase_train(torch, smi: str, sku: str) -> dict:
         shutil.rmtree(d, ignore_errors=True)
     return {"launches": counts, "iter_ms": iter_ms, "median_ms": med, "tokens_per_s": tokens / med * 1e3,
             "step_ms": step_ms, "device_ms": fam, "peak_gb": peak_gb, "flops": flops, "bf16_share": share,
-            "loss": {"kernel": lk, "plain": lp, "fp32": l32}, "grad_rel_l2_max": rels[worst],
-            "fp32_ratio": wk / wp, "params": n_params, "device": smi}
+            **held, "params": n_params, "device": smi}
+
+
+class RouteTape:
+    """Records or replays the MoE routing of a run, by wrapping
+    ``repro_torch.models.moe.route`` for the length of a ``with`` block.
+
+    ``record()`` yields a list that gets each MoE call's expert choices
+    ([T, k]) in call order.  ``replay(calls)`` routes each call as the
+    recorded one did: its choices, their weights renormalised from this run's
+    own router probabilities, and the slots and drops they imply; it yields a
+    list that gets what this run would have chosen itself.  Calls run layer
+    by layer, pass by pass (a remat recompute is a pass of its own), so the
+    same model on the same batch makes them in the same order.
+    """
+
+    def __init__(self):
+        from repro_torch.models import moe
+
+        self.moe = moe
+
+    @contextlib.contextmanager
+    def _wrapped(self, route):
+        orig = self.moe.route
+        self.moe.route = lambda cfg, p, xf: route(orig(cfg, p, xf), cfg)
+        try:
+            yield
+        finally:
+            self.moe.route = orig
+
+    @contextlib.contextmanager
+    def record(self):
+        calls = []
+
+        def route(r, cfg):
+            calls.append(r.experts)
+            return r
+
+        with self._wrapped(route):
+            yield calls
+
+    @contextlib.contextmanager
+    def replay(self, calls):
+        own = []
+
+        def route(r, cfg):
+            if len(own) == len(calls):
+                fail(f"replay: more MoE calls than the {len(calls)} recorded")
+            e = calls[len(own)]
+            own.append(r.experts)
+            w = r.probs.gather(-1, e)
+            return self.moe.Routing(r.probs, w / w.sum(-1, keepdim=True), e, *self.moe.slots(cfg, e))
+
+        with self._wrapped(route):
+            yield own
+        if len(own) != len(calls):
+            fail(f"replay: {len(own)} MoE calls, {len(calls)} recorded")
+
+
+def route_agreement(a_calls, b_calls, n_layers: int) -> list[float]:
+    """For each of ``n_layers`` MoE layers, the share of ``a``'s (token,
+    expert) choices that ``b`` made too, pooled over the passes (call i is
+    layer i mod n_layers)."""
+    hit, total = [0.0] * n_layers, [0] * n_layers
+    for i, (a, b) in enumerate(zip(a_calls, b_calls, strict=True)):
+        hit[i % n_layers] += float((a[:, :, None] == b[:, None, :]).any(-1).sum())
+        total[i % n_layers] += a.numel()
+    return [h / t for h, t in zip(hit, total)]
+
+
+class F32View(dict):
+    """A params tree read in fp32: each tensor is cast when the model reads
+    it and freed after use, so a bf16 model that fills most of the card can
+    also run the plain path in fp32 on the same (bf16-valued) weights."""
+
+    def __getitem__(self, key):
+        return _f32_view(super().__getitem__(key))
+
+
+def _f32_view(v):
+    if isinstance(v, dict):
+        return F32View(v)
+    if isinstance(v, list):
+        return [_f32_view(x) for x in v]
+    return v.float()
+
+
+def cross_run(torch, model, params, prompts, impl, feed=None, counts=None) -> list:
+    """Prefill + CROSS_STEPS decode steps with the switch set to ``impl``;
+    decode inputs from ``feed`` if given, else greedy.  Returns the
+    last-position logits of each pass over the config's vocabulary (the
+    padded rows hold -1e30), in fp32.  With a list ``counts``, the
+    launch counts are set to 0 just before each pass and appended just after."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import set_attn_impl
+
+    def counted(fn, *args):
+        if counts is None:
+            return fn(*args)
+        torch.cuda.synchronize()
+        kops.reset_launch_counts()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        counts.append(kops.launch_counts())
+        return out
+
+    set_attn_impl(impl)
+    try:
+        with torch.inference_mode():
+            cache = model.init_cache(BATCH, PROMPT_LEN + CROSS_STEPS + 1)
+            logits, cache = counted(model.prefill, params, prompts, cache)
+            vocab = model.cfg.vocab
+            outs = [logits[:, -1, :vocab].float()]
+            for i in range(CROSS_STEPS):
+                tok = feed[i] if feed is not None else outs[-1].argmax(-1, keepdim=True).int()
+                logits, cache = counted(model.decode_step, params, tok, cache)
+                outs.append(logits[:, -1, :vocab].float())
+    finally:
+        set_attn_impl(None)
+    return outs
+
+
+def fmt_list(xs, f: str = ".3e") -> str:
+    return "[" + ", ".join(format(x, f) for x in xs) + "]"
+
+
+def moe_serve(torch, arch: str, smi: str, sku: str) -> dict:
+    """Phase 10a: serve ``arch`` at full width through ``serve`` on cuda with
+    exact launch counts, hold the kernel path against the plain path (free
+    and with routing forced) and fp32, and profile decode."""
+    from repro_torch._bridge import tree_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch.serve import make_prompts, serve
+    from repro_torch.models import Model, moe
+
+    cfg = get_config(arch)
+    m = cfg.moe
+    kinds = cfg.layer_seq()
+    n, n_moe = len(kinds), sum(f == "moe" for _, f in kinds)
+    print(f"[10] serve {arch} full width: {n} layers ({n_moe} MoE: {m.n_experts} experts top-{m.top_k}, "
+          f"d_expert {m.d_expert}, {m.n_shared} shared; {n - n_moe} dense first, d_ff {cfg.d_ff}), "
+          f"d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, vocab {cfg.vocab}, "
+          f"{cfg.dtype}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    kops.reset_launch_counts()
+    res = serve(arch, smoke=False, batch=BATCH, prompt_len=PROMPT_LEN, gen=GEN, seed=SEED)
+    counts = kops.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    toks = res["tokens"]
+    if toks.shape != (BATCH, GEN) or toks.min() < 0 or toks.max() >= cfg.vocab:
+        fail(f"{arch}: tokens out of range or shape: {toks.shape}, [{toks.min()}, {toks.max()}]")
+    steps = GEN - 1
+    per_prefill = {"rmsnorm": 2 * n + 1, "flash_attention": n, "decode_attention": 0}
+    per_step = {"rmsnorm": 2 * n + 1, "flash_attention": 0, "decode_attention": n}
+    want = {k: per_prefill[k] + steps * per_step[k] for k in per_prefill}
+    print(f"[10] {arch} launches in serve() {counts} (expected {want})")
+    if counts != want:
+        fail(f"{arch}: the serving path did not launch each kernel as expected")
+    print(f"[10] {arch} prefill {res['prefill_s'] * 1e3:.2f} ms, decode {res['decode_s'] * 1e3:.2f} ms for "
+          f"{steps} steps ({res['tok_per_s']:.1f} tok/s), peak memory {peak_gb:.2f} GB  ({smi})")
+    torch.cuda.empty_cache()
+
+    # The kernel path against the plain path, on the same weights and prompts.
+    model = Model(cfg, "cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    prompts = make_prompts(cfg, BATCH, PROMPT_LEN, SEED, "cuda")
+    tape = RouteTape()
+    path = []
+    with tape.record() as rec:
+        kern = cross_run(torch, model, params, prompts, "kernel", counts=path)
+    print(f"[10] {arch} launches a prefill {path[0]}, a decode step {path[1]} (expected {per_prefill}, {per_step})")
+    if path[0] != per_prefill or any(c != per_step for c in path[1:]):
+        fail(f"{arch}: a prefill or a decode step did not launch each kernel as expected: {path}")
+    if not all(bool(o.isfinite().all()) for o in kern):
+        fail(f"{arch}: non-finite logits on the kernel path")
+    feed = [o.argmax(-1, keepdim=True).int() for o in kern[:-1]]
+    # The MoE FFN waits on nothing on the device (a CUDA graph of the decode
+    # step could hold it): one call at a prefill's and one at a decode step's
+    # token count, with any synchronising operation made an error.
+    ffn = params["layers"][kinds.index(("attn", "moe"))]["ffn"]
+    xs = [params["embed"][prompts[:, :rows].long()] for rows in (PROMPT_LEN, 1)]  # [B, rows, d]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.inference_mode():
+            for x in xs:
+                moe.apply_moe(cfg, ffn, x)
+    except RuntimeError as e:
+        fail(f"{arch}: apply_moe synchronises with the device: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    print(f"[10] {arch} apply_moe at {BATCH} x {PROMPT_LEN} and {BATCH} x 1 tokens under "
+          f"torch.cuda.set_sync_debug_mode('error'): no synchronising operation")
+    with tape.record() as rec_free:
+        free = cross_run(torch, model, params, prompts, "plain", feed)
+    with tape.replay(rec) as own:
+        forced = cross_run(torch, model, params, prompts, "plain", feed)
+    m32 = Model(dataclasses.replace(cfg, dtype="float32"), "cuda")
+    with tape.replay(rec) as own32:
+        f32 = cross_run(torch, m32, F32View(params), prompts, "plain", feed)
+    del m32
+    torch.cuda.empty_cache()
+    rel_free = [rel_l2(a, b) for a, b in zip(kern, free)]
+    rel_forced = [rel_l2(a, b) for a, b in zip(kern, forced)]
+    k32 = [rel_l2(a, b) for a, b in zip(kern, f32)]
+    p32 = [rel_l2(a, b) for a, b in zip(forced, f32)]
+    ratios = [a / b for a, b in zip(k32, p32)]
+    agree_free = route_agreement(rec, rec_free, n_moe)
+    agree = route_agreement(rec, own, n_moe)
+    agree32 = route_agreement(rec, own32, n_moe)
+    print(f"[10] {arch} plain vs kernel, free run (own routing, teacher-forced tokens): last-position "
+          f"logits rel L2 per pass {fmt_list(rel_free)}; routing agreement per MoE layer "
+          f"{fmt_list(agree_free, '.4f')} (min {min(agree_free):.4f}, printed, not held)")
+    print(f"[10] {arch} plain vs kernel, routing forced to the kernel path's: rel L2 per pass "
+          f"{fmt_list(rel_forced)} (tol {MOE_REL_L2_TOL:g}); the plain path's own top-k agrees per MoE "
+          f"layer {fmt_list(agree, '.4f')} (min {min(agree):.4f}, tol {ROUTE_AGREE:g}); fp32's own "
+          f"top-k agrees {fmt_list(agree32, '.4f')}")
+    print(f"[10] {arch} against the plain path in fp32 (same weights, routing forced), rel L2 per pass: "
+          f"kernel {fmt_list(k32)}, plain bf16 {fmt_list(p32)}; kernel / plain {fmt_list(ratios)} "
+          f"(tol {F32_RATIO:g})")
+    # Written so that a NaN fails each test.
+    if not all(r <= MOE_REL_L2_TOL for r in rel_forced):
+        fail(f"{arch}: the kernel path disagrees with the plain path: rel L2 {rel_forced}")
+    if not all(a >= ROUTE_AGREE for a in agree):
+        fail(f"{arch}: the two paths route alike on only {min(agree):.2%} of choices in a layer")
+    if not all(r <= F32_RATIO for r in ratios):
+        fail(f"{arch}: kernel path is {ratios} times as far from fp32 as the plain bf16 path")
+
+    # Where a decode step's time goes, and the least time it could take: a
+    # step reads every weight (each expert's whole matrix, as the capacity
+    # buffer multiplies all E experts) but the embedding's other rows, and
+    # the cache up to its length.
+    prof = profile_decode(torch, model, params, prompts, smi, tag="10")
+    emb = params["embed"]
+    weight_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    if not cfg.tied_embeddings:
+        weight_bytes -= emb.numel() * emb.element_size()
+    rows = PROMPT_LEN + 9  # the mean cache length over the timed and the profiled steps
+    cache_bytes = 2 * n * BATCH * rows * cfg.kv_dim * 2
+    bound_ms = (weight_bytes + cache_bytes) / PEAKS[sku]["bytes"] * 1e3
+    print(f"[10] {arch} decode step: bound {bound_ms:.3f} ms ({(weight_bytes + cache_bytes) / 1e9:.2f} GB of "
+          f"weights and cache at {PEAKS[sku]['bytes'] / 1e12:.2f} TB/s); measured wall "
+          f"{prof['step_wall_ms']:.3f} ms, device {prof['step_device_ms']:.3f} ms over "
+          f"{prof['step_device_ops']:.0f} ops, busy {prof['busy_share']:.1%}  ({smi})")
+    del model, params, prompts
+    torch.cuda.empty_cache()
+    return {
+        "params": n_params, "launches": {"serve": counts, "prefill": path[0], "step": path[1]},
+        "prefill_ms": res["prefill_s"] * 1e3, "decode_ms": res["decode_s"] * 1e3,
+        "tok_per_s": res["tok_per_s"], "peak_gb": peak_gb, "rel_l2_free": rel_free,
+        "rel_l2_forced": rel_forced, "fp32_ratio": ratios, "route_agreement_free": agree_free,
+        "route_agreement_forced": agree, "route_agreement_fp32": agree32,
+        "decode_bound_ms": bound_ms, "decode_bound_gb": (weight_bytes + cache_bytes) / 1e9,
+        "profile": prof, "device": smi,
+    }
+
+
+def moe_train(torch, smi: str, sku: str) -> dict:
+    """Phase 10b: granite-moe at full width and depth through ``Trainer`` on
+    cuda: one iteration from launch counts of 0 (finite loss and grad norm,
+    aux > 0, every leaf changed, the router included), MOE_TRAIN_TIMED timed
+    and one profiled; then one fwdbwd held against the plain path and fp32
+    with routing forced (:func:`hold_fwdbwd`)."""
+    from repro_torch._bridge import to_torch, tree_flatten_with_path, tree_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch.train import Trainer
+
+    sync = torch.cuda.synchronize
+    cfg = get_config(MOE_TRAIN_ARCH)
+    n = cfg.n_layers
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    tr = Trainer(cfg, steps=1 + MOE_TRAIN_TIMED, n_pods=TRAIN_PODS, global_batch=TRAIN_BATCH,
+                 seq_len=TRAIN_SEQ, ckpt_dir=None, device="cuda")
+    n_params = sum(p.numel() for p in tree_leaves(tr.params))
+    print(f"[10] train {MOE_TRAIN_ARCH} at full width and depth ({n} layers, {cfg.moe.n_experts} experts "
+          f"top-{cfg.moe.top_k}, {cfg.dtype}, remat {cfg.remat}), {n_params / 1e9:.3f} B params; "
+          f"{TRAIN_PODS} pods, int8 gradsync, global batch {TRAIN_BATCH} x {TRAIN_SEQ}")
+    p0 = tr.params
+    sync()
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    m = tr.iteration(0)
+    sync()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    counts = kops.launch_counts()
+    want = {"rmsnorm": TRAIN_PODS * ((2 * n + 1) + 2 * n), "flash_attention": TRAIN_PODS * 2 * n,
+            "decode_attention": 0}
+    print(f"[10] {MOE_TRAIN_ARCH} launches in one iteration {counts} (expected {want}); loss "
+          f"{m['loss']:.6f}, ce {m['ce']:.6f}, aux {m['aux']:.6f}, grad norm {m['grad_norm']:.4f}")
+    if counts != want:
+        fail(f"{MOE_TRAIN_ARCH}: the training path did not launch each kernel as expected")
+    if not (np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]) and m["aux"] > 0):
+        fail(f"{MOE_TRAIN_ARCH}: non-finite loss or grad_norm, or aux not > 0: {m}")
+    same = [nm for (nm, a), b in zip(tree_flatten_with_path(p0), tree_leaves(tr.params)) if torch.equal(a, b)]
+    if same:
+        fail(f"{MOE_TRAIN_ARCH}: {len(same)} param leaves unchanged by an update: {same[:4]}")
+    routers = [t for nm, t in tree_flatten_with_path(tr.params) if nm.endswith("router/w")]
+    if len(routers) != n or any(t.dtype != torch.float32 for t in routers):
+        fail(f"{MOE_TRAIN_ARCH}: the routers are not {n} fp32 leaves after an update")
+    del p0
+    iter_ms = []
+    for it in range(1, 1 + MOE_TRAIN_TIMED):
+        sync()
+        t0 = time.perf_counter()
+        m = tr.iteration(it)
+        sync()
+        iter_ms.append((time.perf_counter() - t0) * 1e3)
+        if not (np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])):
+            fail(f"{MOE_TRAIN_ARCH}: non-finite loss or grad_norm at iteration {it}: {m}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    med = statistics.median(iter_ms)
+    print(f"[10] {MOE_TRAIN_ARCH} ms an iteration: first (counted) {first_ms:.2f}, then {fmt_ms(iter_ms)}, "
+          f"median {med:.2f} ms; {tokens / med * 1e3:.1f} tokens/s; peak memory {peak_gb:.2f} GB  ({smi})")
+    fam, flops, share = profiled_iteration(torch, tr, 1 + MOE_TRAIN_TIMED, med, "10", smi, sku)
+
+    params, grad_fn = tr.params, tr.grad_fn
+    batch = {k: to_torch(v, "cuda") for k, v in tr.dataset.batch(0, 0, TRAIN_PODS).items()}
+    del tr
+    torch.cuda.empty_cache()
+    held = hold_fwdbwd(torch, "10", MOE_TRAIN_ARCH, cfg, params, batch, grad_fn, RouteTape())
+    del params
+    torch.cuda.empty_cache()
+    return {"launches": counts, "first_ms": first_ms, "iter_ms": iter_ms, "median_ms": med,
+            "tokens_per_s": tokens / med * 1e3, "peak_gb": peak_gb, "device_ms": fam, "flops": flops,
+            "bf16_share": share, "metrics": {k: float(v) for k, v in m.items()}, **held,
+            "params": n_params, "device": smi}
+
+
+def phase_moe(torch, smi: str, sku: str) -> dict:
+    """Phase 10: MoE on the card — serve both MoE archs at full width, then
+    train granite-moe; each model is freed before the next is made."""
+    torch.cuda.empty_cache()
+    out = {arch: moe_serve(torch, arch, smi, sku) for arch in MOE_ARCHS}
+    out["train"] = moe_train(torch, smi, sku)
+    return out
 
 
 def fmt_ms(xs) -> str:
@@ -1564,7 +2092,7 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops as kops
     from repro_torch.launch.serve import make_prompts, serve
-    from repro_torch.models import Model, set_attn_impl
+    from repro_torch.models import Model
 
     t_start = time.monotonic()
     # -- 1. environment -------------------------------------------------------
@@ -1631,28 +2159,12 @@ def main() -> int:
     params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
     prompts = make_prompts(cfg, BATCH, PROMPT_LEN, SEED, "cuda")
 
-    def run(impl, feed=None, m=model, p=params):
-        """Prefill + CROSS_STEPS decode steps; decode inputs from ``feed`` if given."""
-        set_attn_impl(impl)
-        try:
-            with torch.inference_mode():
-                cache = m.init_cache(BATCH, PROMPT_LEN + CROSS_STEPS + 1)
-                logits, cache = m.prefill(p, prompts, cache)
-                outs = [logits[:, -1].float()]
-                for i in range(CROSS_STEPS):
-                    tok = feed[i] if feed is not None else outs[-1].argmax(-1, keepdim=True).int()
-                    logits, cache = m.decode_step(p, tok, cache)
-                    outs.append(logits[:, -1].float())
-        finally:
-            set_attn_impl(None)
-        return outs
-
     def rel_l2s(xs, ys):
         return [rel_l2(a, b) for a, b in zip(xs, ys)]
 
-    kern = run("kernel")
+    kern = cross_run(torch, model, params, prompts, "kernel")
     feed = [o.argmax(-1, keepdim=True).int() for o in kern[:-1]]
-    plain = run("plain", feed)  # teacher-forced with the kernel path's tokens
+    plain = cross_run(torch, model, params, prompts, "plain", feed)  # teacher-forced with the kernel path's tokens
     for i, a in enumerate(kern):
         if not bool(a.isfinite().all()):
             fail(f"non-finite logits on the kernel path at step {i}")
@@ -1661,18 +2173,15 @@ def main() -> int:
     agree = [float((a.argmax(-1) == b.argmax(-1)).float().mean()) for a, b in zip(kern, plain)]
     # The plain path in fp32 on the same (bf16-valued) weights.
     m32 = Model(dataclasses.replace(cfg, dtype="float32"), "cuda")
-    f32 = run("plain", feed, m32, tree_map(lambda t: t.float(), params))
+    f32 = cross_run(torch, m32, tree_map(lambda t: t.float(), params), prompts, "plain", feed)
     del m32
     torch.cuda.empty_cache()
     fed = torch.cat(feed, dim=1).cpu().numpy()  # the kernel path's first tokens
     same_as_serve = bool((fed == toks[:, :CROSS_STEPS]).all())
 
-    def fmt(xs):
-        return "[" + ", ".join(f"{x:.3e}" for x in xs) + "]"
-
     print(
         f"[5] plain vs kernel, last-position logits over prefill + {CROSS_STEPS} steps: "
-        f"max rel L2 {worst:.3e} (tol {REL_L2_TOL:g}), per step {fmt(rels)}; greedy "
+        f"max rel L2 {worst:.3e} (tol {REL_L2_TOL:g}), per step {fmt_list(rels)}; greedy "
         f"agreement per step {agree}; kernel-path tokens equal serve()'s: {same_as_serve}"
     )
     # Both bf16 paths against the plain path in fp32 on the same weights: the
@@ -1682,16 +2191,16 @@ def main() -> int:
     ratios = [a / b for a, b in zip(k32, p32)]
     print(
         f"[5] against the plain path in fp32 (same weights), rel L2 per step: "
-        f"kernel {fmt(k32)}, plain bf16 {fmt(p32)}; kernel / plain {fmt(ratios)} "
+        f"kernel {fmt_list(k32)}, plain bf16 {fmt_list(p32)}; kernel / plain {fmt_list(ratios)} "
         f"(tol {F32_RATIO:g})"
     )
-    if worst > REL_L2_TOL:
-        fail(f"kernel path disagrees with the plain path: rel L2 {worst:.3e}")
-    if max(ratios) > F32_RATIO:
-        fail(f"kernel path is {max(ratios):.3f}x as far from fp32 as the plain bf16 path")
+    if not all(r <= REL_L2_TOL for r in rels):  # so that a NaN fails too
+        fail(f"kernel path disagrees with the plain path: rel L2 {rels}")
+    if not all(r <= F32_RATIO for r in ratios):
+        fail(f"kernel path is {ratios} times as far from fp32 as the plain bf16 path")
 
     # -- 6. where a decode step's time goes ---------------------------------------------
-    profile_decode(torch, model, params, prompts)
+    profile_decode(torch, model, params, prompts, smi)
 
     # -- 7. the data plane: SWIRL's own main path ----------------------------------------
     del model, params
@@ -1706,7 +2215,10 @@ def main() -> int:
     # -- 9. training on the card ---------------------------------------------------------
     train = phase_train(torch, smi, sku)
 
-    # -- 10. result --------------------------------------------------------------------
+    # -- 10. MoE on the card ---------------------------------------------------------------
+    moe = phase_moe(torch, smi, sku)
+
+    # -- result ----------------------------------------------------------------------------
     src = "src/repro_torch/csrc/{}.cu"
     replaces = {
         "rmsnorm": "src/repro/kernels/rmsnorm.py:25",
@@ -1726,11 +2238,15 @@ def main() -> int:
                 **{path: {arm: c[k] for arm, c in res["launches"].items()}
                    for path, res in (("dataplane", dataplane), ("traced", traced))},
                 "train": train["launches"][k],
+                **{f"serve {arch}": {path: c[k] for path, c in moe[arch]["launches"].items()}
+                   for arch in MOE_ARCHS},
+                f"train {MOE_TRAIN_ARCH}": moe["train"]["launches"][k],
             },
         })
     print(json.dumps({"dataplane": dataplane}))
     print(json.dumps({"traced": traced}))
     print(json.dumps({"train": train}))
+    print(json.dumps({"moe": moe}))
     print(f"kernels: {', '.join(r['name'] for r in record)}; {time.monotonic() - t_start:.1f} s in all")
     print(smi)
     print(json.dumps({"kernels": record}))

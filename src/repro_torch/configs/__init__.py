@@ -4,9 +4,11 @@ from __future__ import annotations
 
 from repro_torch.models.config import ModelConfig, smoke_variant
 
-from . import llama3_2_3b
+from . import deepseek_moe_16b, granite_moe_1b_a400m, llama3_2_3b
 
-ARCHS: dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG for m in (llama3_2_3b,)}
+ARCHS: dict[str, ModelConfig] = {
+    m.CONFIG.name: m.CONFIG for m in (llama3_2_3b, granite_moe_1b_a400m, deepseek_moe_16b)
+}
 
 
 def get_config(arch: str, *, smoke: bool = False) -> ModelConfig:

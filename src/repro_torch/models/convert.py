@@ -27,13 +27,13 @@ import torch
 from repro_torch._bridge import resolve_device, to_torch, tree_map
 
 from .config import ModelConfig
-from .model import _check_dense
+from .model import check_ported
 
 Params = dict[str, Any]
 
 
 def params_from_jax(np_tree: Params, cfg: ModelConfig, device) -> Params:
-    _check_dense(cfg)
+    check_ported(cfg)
     dev = resolve_device(device)
 
     def put(tree, r=None):
@@ -58,7 +58,7 @@ def params_to_jax(params: Params, cfg: ModelConfig) -> Params:
     """The port's tree in the reference's layout, as tensors on their own
     device: layers ``len(prefix_pattern) + r * len(pattern) + j`` stack into
     ``decoder.body[j]`` along a leading ``repeats`` axis."""
-    _check_dense(cfg)
+    check_ported(cfg)
     layers = params["layers"]
     n_pre, n_pat = len(cfg.prefix_pattern), len(cfg.pattern)
     if len(layers) != n_pre + cfg.repeats * n_pat:

@@ -1,6 +1,8 @@
-"""Model assembly for the dense families: blocks → layer stack → LM forward.
+"""Model assembly for the dense and MoE families: blocks → layer stack → LM forward.
 
-The port of ``repro.models.model`` for dense decoders.  The reference stacks
+The port of ``repro.models.model`` for decoders whose blocks are attention
+followed by a dense MLP (``mlp``, ``dense0``), a Mixture-of-Experts FFN
+(``moe``, :mod:`repro_torch.models.moe`) or nothing.  The reference stacks
 the parameters of each pattern position over ``repeats`` and walks the stack
 with ``lax.scan``; the port keeps one parameter dict per layer, in
 ``cfg.layer_seq()`` order, and walks them in a Python loop.  The same block
@@ -13,8 +15,12 @@ cache.  The reference's ``jax.checkpoint`` policy,
 ``dots_with_no_batch_dims_saveable``, keeps the matmul outputs; whole-block
 recompute gives the same numbers with more recompute.
 
-What is not dense raises ``NotImplementedError`` naming its ROADMAP item:
-MoE, the recurrent mixers, encoder-decoder, the vision frontend,
+Each block returns its MoE aux loss beside ``x`` (none for a dense FFN),
+and the stack sums them in layer order, under remat too, as the reference's
+``_apply_stack``; ``Model.loss`` adds ``router_aux_weight ×`` the sum.
+
+What is not ported yet raises ``NotImplementedError`` naming its ROADMAP
+item: the recurrent mixers, encoder-decoder, the vision frontend,
 ``attn_local``, the logit softcaps and ``post_block_norm``.
 """
 
@@ -42,6 +48,7 @@ from .layers import (
     init_norm,
     linear,
 )
+from .moe import apply_moe, init_moe
 
 Params = dict[str, Any]
 
@@ -56,7 +63,9 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
     return {"float32": torch.float32, "bfloat16": torch.bfloat16}[cfg.dtype]
 
 
-def _check_dense(cfg: ModelConfig) -> None:
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` naming the ROADMAP item of what ``cfg``
+    needs that the port does not have yet."""
     def todo(what: str, item: str):
         raise NotImplementedError(
             f"{cfg.name}: {what} is not ported to repro_torch yet (ROADMAP queue A, {item})"
@@ -69,9 +78,7 @@ def _check_dense(cfg: ModelConfig) -> None:
             todo("sliding-window attention (attn_local)", "A6 other families")
         if mixer != "attn":
             raise ValueError(f"{cfg.name}: unknown mixer {mixer!r}")
-        if ffn == "moe":
-            todo("the MoE FFN", "A4 MoE")
-        if ffn not in ("mlp", "dense0", "none"):
+        if ffn not in ("mlp", "dense0", "moe", "none"):
             raise ValueError(f"{cfg.name}: unknown ffn {ffn!r}")
     if cfg.is_encoder_decoder:
         todo("encoder-decoder", "A6 other families")
@@ -91,7 +98,10 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, kind: tuple[str, str], dt
     }
     if ffn != "none":
         p["norm2"] = init_norm(cfg, dtype, gen.device)
-        p["ffn"] = init_mlp(gen, cfg, cfg.d_ff, dtype)
+        if ffn == "moe":
+            p["ffn"] = init_moe(gen, cfg, dtype)
+        else:  # "mlp", "dense0"
+            p["ffn"] = init_mlp(gen, cfg, cfg.d_ff, dtype)
     return p
 
 
@@ -104,8 +114,10 @@ def apply_block(
     positions: torch.Tensor,
     causal: bool,
     cache: Params | None,  # {"k", "v", "len"} for this layer, or None
-) -> tuple[torch.Tensor, Params | None]:
+) -> tuple[torch.Tensor, Params | None, torch.Tensor | None]:
+    """Returns ``(x', new cache entry, aux loss)``; aux is None without a MoE FFN."""
     _, ffn = kind
+    aux = None
     h = apply_norm(cfg, p["norm1"], x)
     out, new_cache = attention_block(
         cfg, p["mixer"], h, positions=positions, causal=causal, cache=cache,
@@ -114,8 +126,18 @@ def apply_block(
     x = x + out
     if ffn != "none":
         h = apply_norm(cfg, p["norm2"], x)
-        x = x + apply_mlp(cfg, p["ffn"], h)
-    return x, new_cache
+        if ffn == "moe":
+            out, aux = apply_moe(cfg, p["ffn"], h)
+        else:
+            out = apply_mlp(cfg, p["ffn"], h)
+        x = x + out
+    return x, new_cache, aux
+
+
+def _remat_block(cfg: ModelConfig, kind, positions, p: Params, x: torch.Tensor):
+    """A cache-free block for ``checkpoint``: ``(x', aux)``."""
+    x, _, aux = apply_block(cfg, kind, p, x, positions=positions, causal=True, cache=None)
+    return x, aux
 
 
 @dataclass(frozen=True)
@@ -126,7 +148,7 @@ class Model:
     device: Any = "cuda"
 
     def __post_init__(self):
-        _check_dense(self.cfg)
+        check_ported(self.cfg)
         object.__setattr__(self, "device", resolve_device(self.device))
 
     # -- init ----------------------------------------------------------------
@@ -172,29 +194,40 @@ class Model:
 
     def _stack(
         self, params: Params, x: torch.Tensor, *, positions: torch.Tensor, cache: Params | None
-    ) -> tuple[torch.Tensor, list[Params] | None]:
+    ) -> tuple[torch.Tensor, list[Params] | None, torch.Tensor | None]:
+        """``(x, new cache layers or None, aux)``: aux sums the blocks' MoE
+        losses in layer order (an fp32 scalar; None when no block has a MoE FFN)."""
         cfg = self.cfg
         new_layers = [] if cache is not None else None
         remat = cfg.remat and cache is None and torch.is_grad_enabled()
+        aux_total = None
         for i, (kind, p) in enumerate(zip(cfg.layer_seq(), params["layers"])):
             if remat:
-                block = partial(apply_block, cfg, kind, positions=positions, causal=True, cache=None)
-                x, _ = checkpoint(block, p, x, use_reentrant=False)
-                continue
-            c = None
-            if cache is not None:
-                c = {**cache["layers"][i], "len": cache["len"]}
-            x, nc = apply_block(cfg, kind, p, x, positions=positions, causal=True, cache=c)
-            if new_layers is not None:
-                new_layers.append({"k": nc["k"], "v": nc["v"]})
-        return x, new_layers
+                block = partial(_remat_block, cfg, kind, positions)
+                x, aux = checkpoint(block, p, x, use_reentrant=False)
+            else:
+                c = None
+                if cache is not None:
+                    c = {**cache["layers"][i], "len": cache["len"]}
+                x, nc, aux = apply_block(cfg, kind, p, x, positions=positions, causal=True, cache=c)
+                if new_layers is not None:
+                    new_layers.append({"k": nc["k"], "v": nc["v"]})
+            if aux is not None:
+                aux_total = aux if aux_total is None else aux_total + aux
+        return x, new_layers, aux_total
 
     # -- forward -----------------------------------------------------------------
     def forward(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
         """Cache-free causal forward: tokens [B, L] → logits [B, L, Vp]."""
+        return self._forward(params, tokens)[0]
+
+    def _forward(self, params: Params, tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """``(logits, aux)``, as the reference's ``forward``."""
         pos = torch.arange(tokens.shape[1], dtype=torch.int32, device=tokens.device)
-        x, _ = self._stack(params, self._embed(params, tokens), positions=pos, cache=None)
-        return self._logits(params, x)
+        x, _, aux = self._stack(params, self._embed(params, tokens), positions=pos, cache=None)
+        if aux is None:
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        return self._logits(params, x), aux
 
     # -- loss ----------------------------------------------------------------
     def loss(
@@ -203,14 +236,14 @@ class Model:
         """Next-token CE (labels == -1 ignored) + the MoE aux loss, as the reference.
 
         The CE is taken over ``seq_chunk`` positions at a time, each chunk's
-        ``log_softmax`` in fp32.  The dense families have no aux loss (0).
+        ``log_softmax`` in fp32.  ``aux`` is the MoE blocks' summed
+        load-balance loss (0 for the dense families).
         Returns ``(loss, {"ce", "aux", "tokens"})``, fp32 scalars.
         """
         cfg = self.cfg
-        logits = self.forward(params, batch["tokens"])
+        logits, aux = self._forward(params, batch["tokens"])
         labels = batch["labels"]
         dev = logits.device
-        aux = torch.zeros((), dtype=torch.float32, device=dev)
         l = logits.shape[1]
         chunk = min(seq_chunk, l)
         total = torch.zeros((), dtype=torch.float32, device=dev)
@@ -242,7 +275,7 @@ class Model:
         """Consume the prompt [B, L0]; returns (last-position logits [B, 1, Vp], cache)."""
         ln = cache["len"]
         pos = ln + torch.arange(tokens.shape[1], dtype=torch.int32, device=tokens.device)
-        x, layers = self._stack(params, self._embed(params, tokens), positions=pos, cache=cache)
+        x, layers, _ = self._stack(params, self._embed(params, tokens), positions=pos, cache=cache)
         logits = self._logits(params, x[:, -1:])
         return logits, {**cache, "layers": layers, "len": ln + tokens.shape[1]}
 

@@ -68,16 +68,21 @@ def test_sharded_loader_yields_the_same_steps():
         tl.close()
 
 
+# name: (arch, changes to its smoke config).  The MoE trees hold the fp32
+# router beside bf16 experts ([R, E, ...] stacked in the reference) and,
+# for deepseek, the shared experts and a dense0 prefix layer.
 VARIANTS = {
-    "fp32": {},
-    "bf16-gqa": {"dtype": "bfloat16", "n_heads": 4, "n_kv_heads": 2, "n_layers": 3},
+    "fp32": ("llama3.2-3b", {}),
+    "bf16-gqa": ("llama3.2-3b", {"dtype": "bfloat16", "n_heads": 4, "n_kv_heads": 2, "n_layers": 3}),
+    "granite-moe-bf16": ("granite-moe-1b-a400m", {"dtype": "bfloat16", "n_layers": 3}),
+    "deepseek-moe-bf16": ("deepseek-moe-16b", {"dtype": "bfloat16", "n_layers": 3}),
 }
 
 
 def setup(variant):
-    kw = VARIANTS[variant]
-    jcfg = dataclasses.replace(jget("llama3.2-3b", smoke=True), **kw)
-    tcfg = dataclasses.replace(tget("llama3.2-3b", smoke=True), **kw)
+    arch, kw = VARIANTS[variant]
+    jcfg = dataclasses.replace(jget(arch, smoke=True), **kw)
+    tcfg = dataclasses.replace(tget(arch, smoke=True), **kw)
     jp = JModel(jcfg).init(jax.random.key(0))
     return jcfg, tcfg, jp
 
@@ -112,6 +117,8 @@ def test_params_to_jax_inverts_params_from_jax(variant):
     names = [n for n, _ in _bridge.tree_flatten_with_path(back)]
     assert names == ["/".join(str(k.key if hasattr(k, "key") else k.idx) for k in p)
                      for p, _ in jax.tree_util.tree_flatten_with_path(jp)[0]]
+    if tcfg.moe.n_experts:  # the MoE leaves, by the reference's names
+        assert {"decoder/body/0/ffn/gate", "decoder/body/0/ffn/router/w"} <= set(names)
     for got, want in zip(_bridge.tree_leaves(back), jax.tree.leaves(host(jp))):
         assert _bridge.to_numpy(got).tobytes() == want.tobytes()
     again = params_from_jax(back, tcfg, "cpu")
@@ -137,7 +144,8 @@ def test_checkpoint_from_jax_reads_into_the_port(variant, tmp_path):
     for (name, a), (_, b) in zip(gl, wl):
         assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), name
     tp = params_from_jax(got["params"], tcfg, "cpu")
-    assert all(p.dtype == getattr(torch, jcfg.dtype) for p in _bridge.tree_leaves(tp))
+    for name, p in _bridge.tree_flatten_with_path(tp):
+        assert p.dtype == (torch.float32 if name.endswith("router/w") else getattr(torch, jcfg.dtype)), name
 
 
 @pytest.mark.parametrize("variant", sorted(VARIANTS))

@@ -30,6 +30,11 @@ TRAINING = (
     "repro_torch.optim.compress", "repro_torch.ckpt.checkpoint", "repro_torch.data.pipeline",
     "repro_torch.models.convert",
 )
+# The MoE slice's modules, which it must reach too.
+MOE = (
+    "repro_torch.models.moe", "repro_torch.configs.granite_moe_1b_a400m",
+    "repro_torch.configs.deepseek_moe_16b",
+)
 
 
 def test_port_imports_no_jax_and_no_repro():
@@ -42,7 +47,7 @@ def test_port_imports_no_jax_and_no_repro():
     n_modules = int(out.stdout.split()[0])
     assert n_modules >= 15  # every module of the port was imported
     imported = set(out.stdout.splitlines()[1].split())
-    assert set(TRAINING) <= imported, sorted(set(TRAINING) - imported)
+    assert set(TRAINING + MOE) <= imported, sorted(set(TRAINING + MOE) - imported)
 
 
 def test_chip_smoke_imports_no_jax():

@@ -1,6 +1,7 @@
 """The port's serving path against ``repro.launch.serve``'s steps (CPU).
 
-Same config (llama3.2-3b smoke, fp32), the same weights (the reference's
+Same config (llama3.2-3b smoke, fp32; and the granite-moe and deepseek-moe
+smoke configs), the same weights (the reference's
 init, converted) and the same prompts (``jax.random.randint(key(seed+1))``,
 as ``repro.launch.serve.serve`` draws them): the greedy tokens must be
 identical.
@@ -61,6 +62,27 @@ def test_greedy_tokens_match_reference(seed, batch, prompt_len, gen):
     res = generate(tm, tp, to_torch(prompts), gen)
     assert res["tokens"].dtype == np.int32
     np.testing.assert_array_equal(res["tokens"], want)
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "deepseek-moe-16b"])
+def test_moe_greedy_tokens_match_reference(arch):
+    # The MoE smoke configs (fp32): prefill routes T = 4 x 12 tokens at the
+    # smoke capacity factor, which drops choices; each decode step routes 4.
+    jcfg, tcfg = jget(arch, smoke=True), tget(arch, smoke=True)
+    jm = JModel(jcfg)
+    jp = jm.init(jax.random.key(0))
+    prompts = jax.random.randint(jax.random.key(1), (4, 12), 0, jcfg.vocab).astype(jnp.int32)
+    want = _reference_tokens(jm, jp, prompts, 8)
+    tm = TModel(tcfg, device="cpu")
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), tcfg, "cpu")
+    np.testing.assert_array_equal(generate(tm, tp, to_torch(prompts), 8)["tokens"], want)
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "deepseek-moe-16b"])
+def test_moe_serve_on_cpu(arch):
+    res = serve(arch, smoke=True, batch=2, prompt_len=8, gen=4, device="cpu")
+    assert res["tokens"].shape == (2, 4)
+    assert ((res["tokens"] >= 0) & (res["tokens"] < 512)).all()
 
 
 def test_serve_on_cpu_returns_reference_dict():

@@ -34,6 +34,7 @@ from repro.configs import get_config as jget
 from repro.launch.train import train as jtrain
 from repro.models import Model as JModel
 from repro.models import ModelConfig as JConfig
+from repro.models import MoECfg as JMoE
 from repro_torch import _bridge
 from repro_torch.ckpt import latest_step
 from repro_torch.configs import get_config as tget
@@ -47,6 +48,7 @@ from repro_torch.launch.train import main as tmain
 from repro_torch.launch.train import train as ttrain
 from repro_torch.models import Model as TModel
 from repro_torch.models import ModelConfig as TConfig
+from repro_torch.models import MoECfg as TMoE
 from repro_torch.models import layers as tlayers
 from repro_torch.models import params_from_jax, params_to_jax
 from repro_torch.optim import AdamWConfig
@@ -111,7 +113,9 @@ def assert_grads(tgrads, jgrads, tcfg, dtype):
     names = [n for n, _ in _bridge.tree_flatten_with_path(tj)]
     assert len(names) == len(jax.tree.leaves(jgrads))
     for name, a, b in zip(names, _bridge.tree_leaves(tj), jax.tree.leaves(jgrads)):
-        assert a.dtype == getattr(torch, dtype), name  # grads keep the params' dtype
+        # grads keep their params' dtype: the model's, and fp32 for a MoE router
+        assert str(a.dtype) == f"torch.{b.dtype}", name
+        assert a.dtype == (torch.float32 if name.endswith("router/w") else getattr(torch, dtype)), name
         a, b = f32(a), f32(b)
         if dtype == "float32":
             np.testing.assert_allclose(a, b, atol=1e-5, rtol=1e-4, err_msg=name)
@@ -145,20 +149,74 @@ def test_loss_chunks_like_the_reference():
     np.testing.assert_allclose(float(tl), float(whole), rtol=TOL["float32"])
 
 
-# The dense families of tests/test_models.py (the others are not ported yet).
+# MoE: the arch smoke configs (granite: 9 experts top-2; deepseek: 7 top-2
+# plus 2 shared, a dense0 layer first), with and without remat.  The aux
+# loss enters the loss as router_aux_weight × aux and reaches the router's
+# gradient; the slot assignment drops choices at these sizes, as the
+# reference does.
+MOE_VARIANTS = {
+    "granite": ("granite-moe-1b-a400m", {"n_layers": 2}),
+    "granite-remat": ("granite-moe-1b-a400m", {"n_layers": 2, "remat": True}),
+    "deepseek": ("deepseek-moe-16b", {"n_layers": 3}),
+    "deepseek-remat": ("deepseek-moe-16b", {"n_layers": 3, "remat": True}),
+    "granite-bf16": ("granite-moe-1b-a400m", {"n_layers": 2, "dtype": "bfloat16"}),
+}
+
+
+def moe_setup(variant):
+    arch, kw = MOE_VARIANTS[variant]
+    jcfg = dataclasses.replace(jget(arch, smoke=True), **kw)
+    tcfg = dataclasses.replace(tget(arch, smoke=True), **kw)
+    jm = JModel(jcfg)
+    jp = jm.init(jax.random.key(0))
+    return jm, jp, TModel(tcfg, "cpu"), params_from_jax(host(jp), tcfg, "cpu")
+
+
+@pytest.mark.parametrize("variant", sorted(MOE_VARIANTS))
+def test_moe_loss_aux_and_grads_match_value_and_grad(variant):
+    jm, jp, tm, tp = moe_setup(variant)
+    dtype = jm.cfg.dtype
+    batch = batch_np(7, 2, 12, jm.cfg.vocab)
+    (jl, jmet), jg = jax.jit(jax.value_and_grad(jm.loss, has_aux=True))(jp, to_j(batch))
+    tg, tmet = make_grad_step(tm)(tp, to_t(batch))
+    for k in ("loss", "ce", "aux"):
+        assert tmet[k].dtype == torch.float32
+        np.testing.assert_allclose(float(tmet[k]), float(jl if k == "loss" else jmet[k]),
+                                   rtol=TOL[dtype], err_msg=k)
+    assert float(tmet["aux"]) > 0.0
+    assert float(tmet["tokens"]) == float(jmet["tokens"])
+    assert_grads(tg, jg, tm.cfg, dtype)
+    routers = [l["ffn"]["router"]["w"] for l, kind in zip(tg["layers"], tm.cfg.layer_seq())
+               if kind[1] == "moe"]
+    assert routers and all(r.dtype == torch.float32 and float(r.abs().max()) > 0 for r in routers)
+
+
+# The dense and MoE families of tests/test_models.py (the others are not ported yet).
 BASE = dict(n_layers=4, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128, vocab=512,
             dtype="float32", remat=False)
 FAMILIES = {
     "dense": BASE,
     "relu2_layernorm_bias": {**BASE, "activation": "relu_sq", "norm": "layernorm", "qkv_bias": True},
+    "moe": {**BASE, "pattern": (("attn", "moe"),),
+            "moe": dict(n_experts=4, top_k=2, d_expert=32, n_shared=1, capacity_factor=4.0)},
+    "prefix_dense0": {**BASE, "n_layers": 5, "prefix_pattern": (("attn", "dense0"),),
+                      "pattern": (("attn", "moe"),),
+                      "moe": dict(n_experts=4, top_k=2, d_expert=16, n_shared=2, capacity_factor=4.0)},
 }
+
+
+def family_configs(family):
+    kw = FAMILIES[family]
+    moe = kw.get("moe")
+    return (JConfig(name=family, **({**kw, "moe": JMoE(**moe)} if moe else kw)),
+            TConfig(name=family, **({**kw, "moe": TMoE(**moe)} if moe else kw)))
 
 
 @pytest.mark.parametrize("family", sorted(FAMILIES))
 def test_train_step_finite_grads(family):
-    jm = JModel(JConfig(name=family, **FAMILIES[family]))
+    jcfg, tcfg = family_configs(family)
+    jm = JModel(jcfg)
     jp = jm.init(jax.random.key(0))
-    tcfg = TConfig(name=family, **FAMILIES[family])
     tm, tp = TModel(tcfg, "cpu"), params_from_jax(host(jp), tcfg, "cpu")
     toks = np.random.default_rng(2).integers(0, tcfg.vocab, (2, 16), dtype=np.int32)
     batch = {"tokens": toks, "labels": toks}
@@ -314,6 +372,51 @@ def test_kernel_path_under_remat_counts_its_launches_and_matches_the_plain_path(
         assert float(a.abs().max()) > 0.0, name  # every leaf has a gradient
     for a, b in zip(_bridge.tree_leaves(kern_g), _bridge.tree_leaves(plain_g)):
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5, rtol=1e-4)
+
+
+def test_moe_kernel_path_under_remat_counts_its_launches_and_matches_the_plain_path(monkeypatch):
+    """The same rehearsal on granite-moe's smoke config: the MoE FFN launches
+    no kernel, so the counts are the dense ones, 2L + 1 + 2L and 2L."""
+    _, _, tm, tp = moe_setup("granite-remat")
+    batch = to_t(batch_np(8, 2, 10, tm.cfg.vocab))
+    plain_g, plain_m = make_grad_step(tm)(tp, batch)
+    calls = {"rmsnorm": 0, "flash_attention": 0}
+
+    def counting(name, fn):
+        def call(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return call
+
+    monkeypatch.setattr(tlayers, "_use_kernel", lambda x: True)
+    monkeypatch.setattr(krmsnorm, "rmsnorm", counting("rmsnorm", krmsnorm.rmsnorm))
+    monkeypatch.setattr(kflash, "flash_attention", counting("flash_attention", kflash.flash_attention))
+    kern_g, kern_m = make_grad_step(tm)(tp, batch)
+    n = tm.cfg.n_layers
+    assert calls == {"rmsnorm": (2 * n + 1) + 2 * n, "flash_attention": 2 * n}
+    for k in ("loss", "aux"):
+        np.testing.assert_allclose(float(kern_m[k]), float(plain_m[k]), rtol=TOL["float32"])
+    for name, a in _bridge.tree_flatten_with_path(kern_g):
+        assert float(a.abs().max()) > 0.0, name
+    for a, b in zip(_bridge.tree_leaves(kern_g), _bridge.tree_leaves(plain_g)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5, rtol=1e-4)
+
+
+def test_moe_trainer_keeps_the_fp32_router_in_a_bf16_model():
+    """One iteration of granite-moe's smoke config in bf16, 2 pods, int8
+    gradsync: AdamW and the compression keep each leaf's own dtype (the
+    router fp32, the experts bf16, the moments fp32), aux > 0, every leaf moves."""
+    cfg = dataclasses.replace(tget("granite-moe-1b-a400m", smoke=True), dtype="bfloat16")
+    tr = Trainer(cfg, steps=2, n_pods=2, global_batch=4, seq_len=16, ckpt_dir=None, device="cpu")
+    p0 = tr.params
+    m = tr.iteration(0)
+    assert np.isfinite(m["loss"]) and m["aux"] > 0.0
+    for (name, a), b in zip(_bridge.tree_flatten_with_path(p0), _bridge.tree_leaves(tr.params)):
+        want = torch.float32 if name.endswith("router/w") else torch.bfloat16
+        assert a.dtype == b.dtype == want, name
+        assert not torch.equal(a, b), name
+    for leaf in _bridge.tree_leaves((tr.opt_state.m, tr.opt_state.v)):
+        assert leaf.dtype == torch.float32
 
 
 # -- the trainer: the port's own integration cases -----------------------------
