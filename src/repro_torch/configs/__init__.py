@@ -4,10 +4,11 @@ from __future__ import annotations
 
 from repro_torch.models.config import ModelConfig, smoke_variant
 
-from . import deepseek_moe_16b, granite_moe_1b_a400m, llama3_2_3b
+from . import deepseek_moe_16b, granite_moe_1b_a400m, jamba_v0_1_52b, llama3_2_3b, xlstm_125m
 
 ARCHS: dict[str, ModelConfig] = {
-    m.CONFIG.name: m.CONFIG for m in (llama3_2_3b, granite_moe_1b_a400m, deepseek_moe_16b)
+    m.CONFIG.name: m.CONFIG
+    for m in (llama3_2_3b, xlstm_125m, granite_moe_1b_a400m, deepseek_moe_16b, jamba_v0_1_52b)
 }
 
 

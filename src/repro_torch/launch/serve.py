@@ -7,13 +7,19 @@ through the port's CUDA kernels; ``device="cpu"`` runs the plain versions.
 
 Usage::
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b --full \\
+    PYTHONPATH=src python -m repro_torch.launch.serve --full \\
         --batch 4 --prompt-len 128 --gen 32
+
+serves xlstm-125m, the default arch, as the reference's does.  ``--layers``
+cuts the depth: ``--arch jamba-v0.1-52b --full --layers 8`` serves one
+period of jamba's pattern at full width (its 32 layers, 103 GB in bf16, do
+not fit on one 80 GB card).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -91,10 +97,15 @@ def serve(
     gen: int = 16,
     seed: int = 0,
     device="cuda",
+    n_layers: int | None = None,
 ) -> dict:
-    """Serve ``arch`` with random weights from ``seed``; see :func:`generate`."""
+    """Serve ``arch`` with random weights from ``seed``; see :func:`generate`.
+
+    ``n_layers`` cuts the config's depth (a whole number of its pattern)."""
     dev = resolve_device(device)
     cfg = get_config(arch, smoke=smoke)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     model = Model(cfg, dev)
     params = model.init(torch.Generator(device=dev).manual_seed(seed))
     prompts = make_prompts(cfg, batch, prompt_len, seed, dev)
@@ -111,17 +122,17 @@ def main() -> None:
     ap = argparse.ArgumentParser(
         description=(
             "Serve a model with the PyTorch/CUDA port: prefill + greedy decode. "
-            f"Archs served so far: {', '.join(sorted(ARCHS))}.  The default arch is "
-            "llama3.2-3b because the reference's default, xlstm-125m, is not ported yet."
+            f"Archs served so far: {', '.join(sorted(ARCHS))}."
         )
     )
-    ap.add_argument("--arch", default="llama3.2-3b")
+    ap.add_argument("--arch", default="xlstm-125m")
     ap.add_argument("--smoke", action="store_true", default=True)
     ap.add_argument("--full", dest="smoke", action="store_false", help="full width")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    ap.add_argument("--layers", type=int, default=None, help="cut the depth to this many layers")
     args = ap.parse_args()
     serve(
         args.arch,
@@ -130,6 +141,7 @@ def main() -> None:
         prompt_len=args.prompt_len,
         gen=args.gen,
         device=args.device,
+        n_layers=args.layers,
     )
 
 

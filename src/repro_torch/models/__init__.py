@@ -1,4 +1,4 @@
-"""Model zoo of the port (dense decoders so far): config, layers, facade, converter."""
+"""Model zoo of the port: configs, layers, mixers (attention/Mamba/xLSTM), MoE, facade, converter."""
 
 from .config import ModelConfig, MoECfg, SSMCfg, smoke_variant
 from .convert import params_from_jax, params_to_jax

@@ -1,13 +1,18 @@
-"""Model assembly for the dense and MoE families: blocks → layer stack → LM forward.
+"""Model assembly for the dense, MoE and recurrent families: blocks → layer stack → LM forward.
 
-The port of ``repro.models.model`` for decoders whose blocks are attention
-followed by a dense MLP (``mlp``, ``dense0``), a Mixture-of-Experts FFN
-(``moe``, :mod:`repro_torch.models.moe`) or nothing.  The reference stacks
+The port of ``repro.models.model`` for decoders whose blocks are a mixer
+(attention, or the recurrent ``mamba``, ``mlstm`` and ``slstm`` of
+:mod:`repro_torch.models.recurrent`) followed by a dense MLP (``mlp``,
+``dense0``), a Mixture-of-Experts FFN (``moe``,
+:mod:`repro_torch.models.moe`) or nothing.  The reference stacks
 the parameters of each pattern position over ``repeats`` and walks the stack
 with ``lax.scan``; the port keeps one parameter dict per layer, in
 ``cfg.layer_seq()`` order, and walks them in a Python loop.  The same block
 code serves the cache-free forward, prefill (cache write) and decode (cache
-append).  The cache is written in place (see ``layers.attention_block``).
+append).  The cache holds one entry a layer, by its mixer, as the
+reference's ``init_block_cache``: ``{"k", "v"}`` for attention, written in
+place (see ``layers.attention_block``), and ``{"state": <NamedTuple>}`` for
+a recurrent mixer, replaced by the state each call returns.
 
 ``cfg.remat`` recomputes each block in the backward pass
 (``torch.utils.checkpoint``, non-reentrant) when grad is on and there is no
@@ -20,8 +25,8 @@ and the stack sums them in layer order, under remat too, as the reference's
 ``_apply_stack``; ``Model.loss`` adds ``router_aux_weight ×`` the sum.
 
 What is not ported yet raises ``NotImplementedError`` naming its ROADMAP
-item: the recurrent mixers, encoder-decoder, the vision frontend,
-``attn_local``, the logit softcaps and ``post_block_norm``.
+item: encoder-decoder, the vision frontend, ``attn_local``, the logit
+softcaps and ``post_block_norm``.
 """
 
 from __future__ import annotations
@@ -49,6 +54,17 @@ from .layers import (
     linear,
 )
 from .moe import apply_moe, init_moe
+from .recurrent import (
+    init_mamba,
+    init_mamba_state,
+    init_mlstm,
+    init_mlstm_state,
+    init_slstm,
+    init_slstm_state,
+    mamba_mix,
+    mlstm_mix,
+    slstm_mix,
+)
 
 Params = dict[str, Any]
 
@@ -72,11 +88,9 @@ def check_ported(cfg: ModelConfig) -> None:
         )
 
     for mixer, ffn in cfg.layer_seq():
-        if mixer in ("mamba", "mlstm", "slstm"):
-            todo(f"the {mixer} mixer", "A5 recurrent mixers")
         if mixer == "attn_local":
             todo("sliding-window attention (attn_local)", "A6 other families")
-        if mixer != "attn":
+        if mixer not in ("attn", "mamba", "mlstm", "slstm"):
             raise ValueError(f"{cfg.name}: unknown mixer {mixer!r}")
         if ffn not in ("mlp", "dense0", "moe", "none"):
             raise ValueError(f"{cfg.name}: unknown ffn {ffn!r}")
@@ -90,11 +104,15 @@ def check_ported(cfg: ModelConfig) -> None:
         todo("post_block_norm", "A6 other families")
 
 
+_MIXER_INIT = {"attn": init_attention, "mamba": init_mamba, "mlstm": init_mlstm, "slstm": init_slstm}
+_MIXER_APPLY = {"mamba": mamba_mix, "mlstm": mlstm_mix, "slstm": slstm_mix}
+
+
 def init_block(gen: torch.Generator, cfg: ModelConfig, kind: tuple[str, str], dtype) -> Params:
-    _, ffn = kind
+    mixer, ffn = kind
     p: Params = {
         "norm1": init_norm(cfg, dtype, gen.device),
-        "mixer": init_attention(gen, cfg, dtype),
+        "mixer": _MIXER_INIT[mixer](gen, cfg, dtype),
     }
     if ffn != "none":
         p["norm2"] = init_norm(cfg, dtype, gen.device)
@@ -105,6 +123,23 @@ def init_block(gen: torch.Generator, cfg: ModelConfig, kind: tuple[str, str], dt
     return p
 
 
+def init_block_cache(
+    cfg: ModelConfig, kind: tuple[str, str], batch: int, max_len: int, dtype, device
+) -> Params:
+    """Cache entry for one layer (no "len": it is shared model-wide)."""
+    mixer, _ = kind
+    if mixer == "attn":
+        kv = init_kv_cache(cfg, batch, max_len, dtype, device)
+        return {"k": kv["k"], "v": kv["v"]}
+    if mixer == "mamba":
+        return {"state": init_mamba_state(cfg, batch, dtype, device)}
+    if mixer == "mlstm":
+        return {"state": init_mlstm_state(cfg, batch, device)}
+    if mixer == "slstm":
+        return {"state": init_slstm_state(cfg, batch, device)}
+    raise ValueError(mixer)
+
+
 def apply_block(
     cfg: ModelConfig,
     kind: tuple[str, str],
@@ -113,16 +148,25 @@ def apply_block(
     *,
     positions: torch.Tensor,
     causal: bool,
-    cache: Params | None,  # {"k", "v", "len"} for this layer, or None
+    cache: Params | None,  # this layer's entry, or None
+    cache_len: torch.Tensor | None = None,  # the shared length, None without a cache
 ) -> tuple[torch.Tensor, Params | None, torch.Tensor | None]:
     """Returns ``(x', new cache entry, aux loss)``; aux is None without a MoE FFN."""
-    _, ffn = kind
+    mixer, ffn = kind
     aux = None
     h = apply_norm(cfg, p["norm1"], x)
-    out, new_cache = attention_block(
-        cfg, p["mixer"], h, positions=positions, causal=causal, cache=cache,
-        use_rope=cfg.use_rope,
-    )
+    new_cache = None
+    if mixer == "attn":
+        kv_cache = None if cache is None else {"k": cache["k"], "v": cache["v"], "len": cache_len}
+        out, upd = attention_block(
+            cfg, p["mixer"], h, positions=positions, causal=causal, cache=kv_cache,
+            use_rope=cfg.use_rope,
+        )
+        if upd is not None:
+            new_cache = {"k": upd["k"], "v": upd["v"]}
+    else:
+        out, st = _MIXER_APPLY[mixer](cfg, p["mixer"], h, cache["state"] if cache else None)
+        new_cache = {"state": st}
     x = x + out
     if ffn != "none":
         h = apply_norm(cfg, p["norm2"], x)
@@ -206,12 +250,12 @@ class Model:
                 block = partial(_remat_block, cfg, kind, positions)
                 x, aux = checkpoint(block, p, x, use_reentrant=False)
             else:
-                c = None
-                if cache is not None:
-                    c = {**cache["layers"][i], "len": cache["len"]}
-                x, nc, aux = apply_block(cfg, kind, p, x, positions=positions, causal=True, cache=c)
+                c, ln = (None, None) if cache is None else (cache["layers"][i], cache["len"])
+                x, nc, aux = apply_block(
+                    cfg, kind, p, x, positions=positions, causal=True, cache=c, cache_len=ln
+                )
                 if new_layers is not None:
-                    new_layers.append({"k": nc["k"], "v": nc["v"]})
+                    new_layers.append(nc)
             if aux is not None:
                 aux_total = aux if aux_total is None else aux_total + aux
         return x, new_layers, aux_total
@@ -261,12 +305,13 @@ class Model:
 
     # -- serving -----------------------------------------------------------------
     def init_cache(self, batch: int, max_len: int) -> Params:
-        """``{"len": int32 scalar, "layers": [{"k", "v"} per layer]}`` on the device."""
+        """``{"len": int32 scalar, "layers": [entry per layer]}`` on the device;
+        an entry is ``{"k", "v"}`` for attention, ``{"state"}`` for a recurrent mixer."""
         dtype = _dtype(self.cfg)
-        layers = []
-        for _ in self.cfg.layer_seq():
-            kv = init_kv_cache(self.cfg, batch, max_len, dtype, self.device)
-            layers.append({"k": kv["k"], "v": kv["v"]})
+        layers = [
+            init_block_cache(self.cfg, kind, batch, max_len, dtype, self.device)
+            for kind in self.cfg.layer_seq()
+        ]
         return {"len": torch.zeros((), dtype=torch.int32, device=self.device), "layers": layers}
 
     def prefill(

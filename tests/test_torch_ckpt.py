@@ -76,7 +76,14 @@ VARIANTS = {
     "bf16-gqa": ("llama3.2-3b", {"dtype": "bfloat16", "n_heads": 4, "n_kv_heads": 2, "n_layers": 3}),
     "granite-moe-bf16": ("granite-moe-1b-a400m", {"dtype": "bfloat16", "n_layers": 3}),
     "deepseek-moe-bf16": ("deepseek-moe-16b", {"dtype": "bfloat16", "n_layers": 3}),
+    # The recurrent trees: mamba's conv, x_proj, dt_proj and its fp32 A_log,
+    # D and dt bias; the mLSTM's fp32 gates; the sLSTM's g_* with fp32 biases.
+    "xlstm-bf16": ("xlstm-125m", {"dtype": "bfloat16", "n_layers": 4}),
+    "jamba-bf16": ("jamba-v0.1-52b", {"dtype": "bfloat16"}),
 }
+# The leaves that stay fp32 in a bf16 tree (as the reference inits them).
+FP32_LEAVES = ("router/w", "A_log", "/D", "dt_proj/b", "i_gate/w", "f_gate/w",
+               "g_i/b", "g_f/b", "g_z/b", "g_o/b")
 
 
 def setup(variant):
@@ -118,7 +125,13 @@ def test_params_to_jax_inverts_params_from_jax(variant):
     assert names == ["/".join(str(k.key if hasattr(k, "key") else k.idx) for k in p)
                      for p, _ in jax.tree_util.tree_flatten_with_path(jp)[0]]
     if tcfg.moe.n_experts:  # the MoE leaves, by the reference's names
-        assert {"decoder/body/0/ffn/gate", "decoder/body/0/ffn/router/w"} <= set(names)
+        j = [f for _, f in tcfg.pattern].index("moe")  # jamba's first MoE FFN is at position 1
+        assert {f"decoder/body/{j}/ffn/gate", f"decoder/body/{j}/ffn/router/w"} <= set(names)
+    if tcfg.pattern[0][0] != "attn":  # the recurrent leaves, by the reference's names
+        want = ({"decoder/body/0/mixer/A_log", "decoder/body/0/mixer/dt_proj/b", "decoder/body/0/mixer/conv_w"}
+                if "jamba" in variant else
+                {"decoder/body/0/mixer/i_gate/w", "decoder/body/1/mixer/g_z/r", "decoder/body/1/mixer/g_o/b"})
+        assert want <= set(names), sorted(want - set(names))
     for got, want in zip(_bridge.tree_leaves(back), jax.tree.leaves(host(jp))):
         assert _bridge.to_numpy(got).tobytes() == want.tobytes()
     again = params_from_jax(back, tcfg, "cpu")
@@ -145,7 +158,7 @@ def test_checkpoint_from_jax_reads_into_the_port(variant, tmp_path):
         assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), name
     tp = params_from_jax(got["params"], tcfg, "cpu")
     for name, p in _bridge.tree_flatten_with_path(tp):
-        assert p.dtype == (torch.float32 if name.endswith("router/w") else getattr(torch, jcfg.dtype)), name
+        assert p.dtype == (torch.float32 if name.endswith(FP32_LEAVES) else getattr(torch, jcfg.dtype)), name
 
 
 @pytest.mark.parametrize("variant", sorted(VARIANTS))

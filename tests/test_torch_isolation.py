@@ -36,6 +36,12 @@ MOE = (
     "repro_torch.configs.deepseek_moe_16b",
 )
 
+# The recurrent slice's modules, which it must reach too.
+RECURRENT = (
+    "repro_torch.models.recurrent", "repro_torch.configs.xlstm_125m",
+    "repro_torch.configs.jamba_v0_1_52b",
+)
+
 
 def test_port_imports_no_jax_and_no_repro():
     out = subprocess.run(
@@ -47,7 +53,7 @@ def test_port_imports_no_jax_and_no_repro():
     n_modules = int(out.stdout.split()[0])
     assert n_modules >= 15  # every module of the port was imported
     imported = set(out.stdout.splitlines()[1].split())
-    assert set(TRAINING + MOE) <= imported, sorted(set(TRAINING + MOE) - imported)
+    assert set(TRAINING + MOE + RECURRENT) <= imported, sorted(set(TRAINING + MOE + RECURRENT) - imported)
 
 
 def test_chip_smoke_imports_no_jax():

@@ -1,7 +1,7 @@
 """The port's serving path against ``repro.launch.serve``'s steps (CPU).
 
-Same config (llama3.2-3b smoke, fp32; and the granite-moe and deepseek-moe
-smoke configs), the same weights (the reference's
+Same config (llama3.2-3b smoke, fp32; the granite-moe and deepseek-moe
+smoke configs; the xlstm-125m and jamba-v0.1-52b smoke configs), the same weights (the reference's
 init, converted) and the same prompts (``jax.random.randint(key(seed+1))``,
 as ``repro.launch.serve.serve`` draws them): the greedy tokens must be
 identical.
@@ -83,6 +83,49 @@ def test_moe_serve_on_cpu(arch):
     res = serve(arch, smoke=True, batch=2, prompt_len=8, gen=4, device="cpu")
     assert res["tokens"].shape == (2, 4)
     assert ((res["tokens"] >= 0) & (res["tokens"] < 512)).all()
+
+
+@pytest.mark.parametrize("arch", ["xlstm-125m", "jamba-v0.1-52b"])
+def test_recurrent_greedy_tokens_match_reference(arch):
+    # fp32 smoke configs: xlstm's mLSTM + sLSTM, and jamba's 7 mamba layers,
+    # one attention layer without RoPE and 4 MoE FFNs (whose prefill at
+    # T = 4 x 12 drops choices at the smoke capacity factor).
+    jcfg, tcfg = jget(arch, smoke=True), tget(arch, smoke=True)
+    jm = JModel(jcfg)
+    jp = jm.init(jax.random.key(0))
+    prompts = jax.random.randint(jax.random.key(1), (4, 12), 0, jcfg.vocab).astype(jnp.int32)
+    want = _reference_tokens(jm, jp, prompts, 8)
+    tm = TModel(tcfg, device="cpu")
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), tcfg, "cpu")
+    np.testing.assert_array_equal(generate(tm, tp, to_torch(prompts), 8)["tokens"], want)
+
+
+def test_cli_serves_the_reference_default_arch_on_cpu(monkeypatch, capsys):
+    # As the reference's CLI: no --arch serves xlstm-125m (its smoke config).
+    import sys
+
+    from repro_torch.launch.serve import main
+
+    monkeypatch.setattr(sys, "argv", ["serve", "--device", "cpu", "--batch", "2", "--prompt-len", "6",
+                                      "--gen", "3"])
+    main()
+    out = capsys.readouterr().out
+    assert "arch=xlstm-125m-smoke device=cpu batch=2 prefill=6 gen=3" in out
+    res = serve("xlstm-125m", smoke=True, batch=2, prompt_len=6, gen=3, device="cpu")
+    assert res["tokens"].shape == (2, 3) and ((res["tokens"] >= 0) & (res["tokens"] < 512)).all()
+
+
+def test_serve_cuts_the_depth(monkeypatch):
+    # n_layers (--layers) replaces the config's depth: jamba's smoke config is
+    # one 8-layer period, so 16 is two periods and 3 is not a whole number.
+    import repro_torch.launch.serve as tserve
+
+    made = []
+    monkeypatch.setattr(tserve, "Model", lambda cfg, dev: made.append(cfg) or TModel(cfg, dev))
+    res = serve("jamba-v0.1-52b", smoke=True, batch=2, prompt_len=6, gen=3, device="cpu", n_layers=16)
+    assert res["tokens"].shape == (2, 3) and made[0].n_layers == 16 and len(made[0].layer_seq()) == 16
+    with pytest.raises(ValueError, match="not divisible"):
+        serve("jamba-v0.1-52b", smoke=True, batch=2, prompt_len=6, gen=3, device="cpu", n_layers=3)
 
 
 def test_serve_on_cpu_returns_reference_dict():

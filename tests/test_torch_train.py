@@ -18,6 +18,9 @@ tokens and labels are made with numpy.  Tolerances:
   relative on the loss, atol 1e-5 + rtol 1e-4 on each grad leaf, as above
   (the plain attention and the flash kernel's plain version order their
   sums differently).
+* The recurrent archs (mamba, mLSTM, sLSTM) as the dense ones: the port's
+  Hillis–Steele scan and the reference's ``associative_scan`` associate
+  in other trees, within the same fp32 tolerances.
 """
 
 import dataclasses
@@ -35,6 +38,7 @@ from repro.launch.train import train as jtrain
 from repro.models import Model as JModel
 from repro.models import ModelConfig as JConfig
 from repro.models import MoECfg as JMoE
+from repro.models import SSMCfg as JSSM
 from repro_torch import _bridge
 from repro_torch.ckpt import latest_step
 from repro_torch.configs import get_config as tget
@@ -49,6 +53,7 @@ from repro_torch.launch.train import train as ttrain
 from repro_torch.models import Model as TModel
 from repro_torch.models import ModelConfig as TConfig
 from repro_torch.models import MoECfg as TMoE
+from repro_torch.models import SSMCfg as TSSM
 from repro_torch.models import layers as tlayers
 from repro_torch.models import params_from_jax, params_to_jax
 from repro_torch.optim import AdamWConfig
@@ -108,19 +113,31 @@ def setup(kw):
     return jm, jp, TModel(tcfg, "cpu"), params_from_jax(host(jp), tcfg, "cpu")
 
 
-def assert_grads(tgrads, jgrads, tcfg, dtype):
+# The leaves that stay fp32 in a bf16 model: a MoE router, and the recurrent
+# mixers' A_log, D, dt bias, mLSTM gates and sLSTM gate biases.
+FP32_LEAVES = ("router/w", "A_log", "/D", "dt_proj/b", "i_gate/w", "f_gate/w",
+               "g_i/b", "g_f/b", "g_z/b", "g_o/b")
+
+
+def leaf_dtype(name, dtype):
+    return torch.float32 if name.endswith(FP32_LEAVES) else getattr(torch, dtype)
+
+
+def assert_grads(tgrads, jgrads, tcfg, dtype, floor=0.0):
+    """Each leaf against the reference's; in bf16 by relative L2, against
+    ``max(|reference leaf|, floor)``."""
     tj = params_to_jax(tgrads, tcfg)
     names = [n for n, _ in _bridge.tree_flatten_with_path(tj)]
     assert len(names) == len(jax.tree.leaves(jgrads))
     for name, a, b in zip(names, _bridge.tree_leaves(tj), jax.tree.leaves(jgrads)):
-        # grads keep their params' dtype: the model's, and fp32 for a MoE router
+        # grads keep their params' dtype: the model's, and fp32 where the param is
         assert str(a.dtype) == f"torch.{b.dtype}", name
-        assert a.dtype == (torch.float32 if name.endswith("router/w") else getattr(torch, dtype)), name
+        assert a.dtype == leaf_dtype(name, dtype), name
         a, b = f32(a), f32(b)
         if dtype == "float32":
             np.testing.assert_allclose(a, b, atol=1e-5, rtol=1e-4, err_msg=name)
         else:
-            assert np.linalg.norm(a - b) <= TOL[dtype] * np.linalg.norm(b), name
+            assert np.linalg.norm(a - b) <= TOL[dtype] * max(np.linalg.norm(b), floor), name
 
 
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
@@ -191,7 +208,70 @@ def test_moe_loss_aux_and_grads_match_value_and_grad(variant):
     assert routers and all(r.dtype == torch.float32 and float(r.abs().max()) > 0 for r in routers)
 
 
-# The dense and MoE families of tests/test_models.py (the others are not ported yet).
+# The recurrent archs: the xlstm-125m and jamba-v0.1-52b smoke configs and
+# test_models.py's mamba and xlstm families, with and without remat.  Jamba's
+# smoke config drops MoE choices at its capacity factor, as the reference does.
+REC_VARIANTS = {
+    "xlstm-smoke": ("xlstm-125m", {}),
+    "jamba-smoke": ("jamba-v0.1-52b", {}),
+    "mamba": (None, "mamba"),
+    "xlstm": (None, "xlstm"),
+}
+
+
+def rec_setup(variant, remat):
+    arch, kw = REC_VARIANTS[variant]
+    if arch is None:
+        jcfg, tcfg = family_configs(kw)
+    else:
+        jcfg, tcfg = jget(arch, smoke=True), tget(arch, smoke=True)
+    jcfg, tcfg = dataclasses.replace(jcfg, remat=remat), dataclasses.replace(tcfg, remat=remat)
+    jm = JModel(jcfg)
+    jp = jm.init(jax.random.key(0))
+    return jm, jp, TModel(tcfg, "cpu"), params_from_jax(host(jp), tcfg, "cpu")
+
+
+@pytest.mark.parametrize("remat", [False, True], ids=["", "remat"])
+@pytest.mark.parametrize("variant", sorted(REC_VARIANTS))
+def test_recurrent_loss_and_grads_match_value_and_grad(variant, remat):
+    jm, jp, tm, tp = rec_setup(variant, remat)
+    batch = batch_np(9, 2, 12, jm.cfg.vocab)
+    (jl, jmet), jg = jax.jit(jax.value_and_grad(jm.loss, has_aux=True))(jp, to_j(batch))
+    tg, tmet = make_grad_step(tm)(tp, to_t(batch))
+    for k in ("loss", "ce", "aux"):
+        assert tmet[k].dtype == torch.float32
+        np.testing.assert_allclose(float(tmet[k]), float(jl if k == "loss" else jmet[k]),
+                                   rtol=TOL["float32"], err_msg=k)
+    assert float(tmet["tokens"]) == float(jmet["tokens"])
+    assert_grads(tg, jg, tm.cfg, "float32")
+    for name, g in _bridge.tree_flatten_with_path(tg):
+        if "/mixer/" in name and not name.endswith(("conv_b", "/b")):
+            assert float(g.abs().max()) > 0.0, name  # the mixers' weights get a gradient
+
+
+def test_recurrent_bf16_keeps_its_fp32_leaves_and_grads():
+    # xlstm's smoke config in bf16: the mLSTM gates and sLSTM biases stay
+    # fp32, with fp32 grads, the rest bf16; loss and grads within bf16 TOL.
+    jcfg = dataclasses.replace(jget("xlstm-125m", smoke=True), dtype="bfloat16")
+    tcfg = dataclasses.replace(tget("xlstm-125m", smoke=True), dtype="bfloat16")
+    jm = JModel(jcfg)
+    jp = jm.init(jax.random.key(0))
+    tm, tp = TModel(tcfg, "cpu"), params_from_jax(host(jp), tcfg, "cpu")
+    batch = batch_np(10, 2, 12, jcfg.vocab)
+    (jl, _), jg = jax.jit(jax.value_and_grad(jm.loss, has_aux=True))(jp, to_j(batch))
+    tg, tmet = make_grad_step(tm)(tp, to_t(batch))
+    np.testing.assert_allclose(float(tmet["loss"]), float(jl), rtol=TOL["bfloat16"])
+    # The sLSTM input-gate bias's grad is rounding noise on both sides (~1e-9,
+    # a millionth of the whole gradient): from a zero state n stays >= 1, so
+    # h = o·c/n, a weighted mean of the z_t in which a shift of every i_t by
+    # one bias cancels.  Such leaves are held against a floor of 1e-6 of the
+    # whole gradient's norm.
+    total = float(np.sqrt(sum(np.sum(f32(g) ** 2) for g in jax.tree.leaves(jg))))
+    assert_grads(tg, jg, tcfg, "bfloat16", floor=1e-6 * total)
+    assert any(g.dtype == torch.float32 for g in _bridge.tree_leaves(tg))
+
+
+# The dense, MoE and recurrent families of tests/test_models.py (the others are not ported yet).
 BASE = dict(n_layers=4, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128, vocab=512,
             dtype="float32", remat=False)
 FAMILIES = {
@@ -202,14 +282,19 @@ FAMILIES = {
     "prefix_dense0": {**BASE, "n_layers": 5, "prefix_pattern": (("attn", "dense0"),),
                       "pattern": (("attn", "moe"),),
                       "moe": dict(n_experts=4, top_k=2, d_expert=16, n_shared=2, capacity_factor=4.0)},
+    "mamba": {**BASE, "pattern": (("mamba", "mlp"),), "ssm": dict(chunk=4)},
+    "xlstm": {**BASE, "d_ff": 0, "n_kv_heads": 4, "pattern": (("mlstm", "none"), ("slstm", "none")),
+              "ssm": dict(chunk=4)},
 }
 
 
 def family_configs(family):
     kw = FAMILIES[family]
-    moe = kw.get("moe")
-    return (JConfig(name=family, **({**kw, "moe": JMoE(**moe)} if moe else kw)),
-            TConfig(name=family, **({**kw, "moe": TMoE(**moe)} if moe else kw)))
+    jkw, tkw = dict(kw), dict(kw)
+    for field, jcls, tcls in (("moe", JMoE, TMoE), ("ssm", JSSM, TSSM)):
+        if field in kw:
+            jkw[field], tkw[field] = jcls(**kw[field]), tcls(**kw[field])
+    return JConfig(name=family, **jkw), TConfig(name=family, **tkw)
 
 
 @pytest.mark.parametrize("family", sorted(FAMILIES))
@@ -398,6 +483,64 @@ def test_moe_kernel_path_under_remat_counts_its_launches_and_matches_the_plain_p
         np.testing.assert_allclose(float(kern_m[k]), float(plain_m[k]), rtol=TOL["float32"])
     for name, a in _bridge.tree_flatten_with_path(kern_g):
         assert float(a.abs().max()) > 0.0, name
+    for a, b in zip(_bridge.tree_leaves(kern_g), _bridge.tree_leaves(plain_g)):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5, rtol=1e-4)
+
+
+def _counting_kernels(monkeypatch):
+    """The kernel path on the CPU, with a count of each wrapper's calls."""
+    from repro_torch.kernels import decode_attention as kdecode
+
+    calls = {"rmsnorm": 0, "flash_attention": 0, "decode_attention": 0}
+
+    def counting(name, fn):
+        def call(*a, **k):
+            calls[name] += 1
+            return fn(*a, **k)
+        return call
+
+    monkeypatch.setattr(tlayers, "_use_kernel", lambda x: True)
+    monkeypatch.setattr(krmsnorm, "rmsnorm", counting("rmsnorm", krmsnorm.rmsnorm))
+    monkeypatch.setattr(kflash, "flash_attention", counting("flash_attention", kflash.flash_attention))
+    monkeypatch.setattr(kdecode, "decode_attention", counting("decode_attention", kdecode.decode_attention))
+    return calls
+
+
+def test_jamba_kernel_path_counts_its_launches_and_matches_the_plain_path(monkeypatch):
+    """Jamba's smoke config (one 8-layer period: 7 mamba, 1 attention, 4 MoE
+    and 4 MLP FFNs) on the kernel path, rehearsed on the CPU: a forward, a
+    prefill and a decode step each call rmsnorm 8 + 8 + 1 = 17 times; flash
+    once in a forward or prefill, decode once a step; the mixers call none.
+    A remat fwdbwd adds the recompute's 16 norms and 1 flash."""
+    jm, jp, tm, tp = rec_setup("jamba-smoke", True)
+    toks = torch.from_numpy(batch_np(11, 2, 10, 512)["tokens"])
+    batch = to_t(batch_np(11, 2, 10, 512))
+    plain_logits = tm.forward(tp, toks)
+    plain_g, plain_m = make_grad_step(tm)(tp, batch)
+    cache = tm.init_cache(2, 12)
+    plain_pre, cache = tm.prefill(tp, toks[:, :9], cache)
+    plain_dec, _ = tm.decode_step(tp, toks[:, 9:], cache)
+
+    calls = _counting_kernels(monkeypatch)
+
+    def counted(fn, *args):
+        for k in calls:
+            calls[k] = 0
+        out = fn(*args)
+        return out, dict(calls)
+
+    with torch.no_grad():
+        logits, n_fwd = counted(tm.forward, tp, toks)
+        (pre, cache), n_pre = counted(tm.prefill, tp, toks[:, :9], tm.init_cache(2, 12))
+        (dec, _), n_dec = counted(tm.decode_step, tp, toks[:, 9:], cache)
+    assert n_fwd == {"rmsnorm": 17, "flash_attention": 1, "decode_attention": 0}
+    assert n_pre == {"rmsnorm": 17, "flash_attention": 1, "decode_attention": 0}
+    assert n_dec == {"rmsnorm": 17, "flash_attention": 0, "decode_attention": 1}
+    for got, want in ((logits, plain_logits), (pre, plain_pre), (dec, plain_dec)):
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5, rtol=1e-4)
+    (kern_g, kern_m), n_bwd = counted(make_grad_step(tm), tp, batch)
+    assert n_bwd == {"rmsnorm": 17 + 16, "flash_attention": 2, "decode_attention": 0}
+    np.testing.assert_allclose(float(kern_m["loss"]), float(plain_m["loss"]), rtol=TOL["float32"])
     for a, b in zip(_bridge.tree_leaves(kern_g), _bridge.tree_leaves(plain_g)):
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5, rtol=1e-4)
 
