@@ -22,10 +22,18 @@ Phases, each of which exits nonzero on failure:
    of phase 7 runs them), and compute the card's bound for
    the same work; time rmsnorm's launch floor (an empty kernel on the same
    grid) and its wrapper's host time a call.  Flash and decode are also
-   held and timed at the serving shapes of phases 10 and 11 (granite: Hq 16,
+   held and timed at the serving shapes of phases 10 to 12 (granite: Hq 16,
    Hkv 8, d 64; deepseek: Hq 16, Hkv 16, d 128; jamba: Hq 32, Hkv 8, d 128;
-   Lq 128 over a cache of 160), and rmsnorm at their widths, 1024, 2048,
-   4096 and xlstm's 768.  Times print in microseconds.
+   nemotron: Hq 48, Hkv 8, d 128; qwen: Hq 64, Hkv 8, d 128; internvl2: Hq
+   14, Hkv 2, d 64, Lq 384 after its 256 patches; seamless's self-attention:
+   Hq 16, Hkv 16, d 64; Lq 128 over a cache of 160), and rmsnorm at their
+   widths, 1024, 2048, 4096, xlstm's 768, internvl2's 896, gemma2's 4608
+   and qwen's 8192.  Flash is held and timed with gemma2's softcap 50 and
+   4096-key window (Hq 32, Hkv 16, d 128) at a 4500-row prompt (batch 1),
+   at its serving prompt and at decode steps of one query row (kv_len 1 to
+   4352, the window past q_offset), and non-causal at seamless's encoder
+   (1024 frames) and cross-attention (Lq 128 and 1 against them).  Times
+   print in microseconds.
 4. Serve llama3.2-3b at full width (28 layers, d 3072, vocab 128256, bf16,
    random weights from seed 0) through ``repro_torch.launch.serve.serve`` on
    ``cuda``, with every launch count zeroed just before and read just after.
@@ -127,6 +135,25 @@ Phases, each of which exits nonzero on failure:
    fp32 TOL by relative L2 (and read beyond it with TF32 planted), and TF32
    must still be off.
 
+12. The other families on the card, in a child process of this one
+   (``chip_smoke.py --families OUT``) started right after the build, so that
+   its profiles stay apart from the later phases' and gemma2's 54.5 GB
+   find the card free: serve gemma2-27b (46 layers, local and
+   global attention, softcaps, post norms) and nemotron-4-15b (32 layers,
+   LayerNorm, relu_sq) whole, qwen1.5-110b at full width with its depth cut
+   from 80 layers to 8, internvl2-1b (24 layers, 256 patches before the
+   prompt) and seamless-m4t-medium (12 encoder layers over 1024 frames, 12
+   decoder layers with cross-attention) whole, through ``serve`` on
+   ``cuda`` (bf16, seed 0, phase 4's batch, prompt and length), each model
+   freed before the next, with exact launch counts for the whole ``serve``
+   call and, from counts of 0, for one prefill and each decode step.
+   Prefill + 4 decode steps are rerun on the plain path and in fp32:
+   logits within FAMILY_REL_L2_TOL and the kernel path at most F32_RATIO
+   times as far from fp32; decode is held against a cache-free forward on
+   the kernel path in fp32 (DECODE_F32_REL_L2_TOL); a warm prefill is timed
+   beside its device time, and decode profiled beside its bound, as in
+   phase 11 (the same code serves both).  The child's failure fails the run.
+
 ``python3 chip_smoke.py --rmsnorm-times ROOT`` only times the rmsnorm
 wrapper of the checkout at ROOT (see :func:`rmsnorm_times`), and
 ``--dataplane-times ROOT`` only its untraced data plane (see
@@ -135,8 +162,8 @@ checkouts at A and B in alternating pairs (see :func:`dataplane_compare`).
 
 The line before the last is the kernels' JSON record (each kernel's
 launches on each path under ``launches_by_path``), the data plane's,
-the traced phase's, training's, the MoE phase's and the recurrent phase's
-numbers above the card's name; the last line is
+the traced phase's, training's, the MoE phase's, the recurrent phase's and
+the families' numbers above the card's name; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 rest of the repository beside it, it exits nonzero and prints no result.
 """
@@ -146,6 +173,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import os
@@ -184,14 +212,30 @@ F32_RATIO = 1.25  # kernel path's distance to the fp32 plain path over the bf16 
 # experts and 4 dense MLPs; 13.3 B params, 26.6 GB) at full width.
 MOE_ARCHS = ("granite-moe-1b-a400m", "deepseek-moe-16b")
 REC_ARCHS = {"xlstm-125m": None, "jamba-v0.1-52b": 8}
-# The attention of the archs of phases 10 and 11 at the serving shapes (batch
-# BATCH, prompt PROMPT_LEN, cache PROMPT_LEN + GEN): (query heads, KV heads,
-# head_dim, d_model).  granite: GQA group 2 at d 64; deepseek: MHA at d 128;
-# jamba: group 4 at d 128.  And each one's model width, where rmsnorm runs
-# (xlstm has no attention).
-SERVE_ATTN = {"granite-moe-1b-a400m": (16, 8, 64, 1024), "deepseek-moe-16b": (16, 16, 128, 2048),
-              "jamba-v0.1-52b": (32, 8, 128, 4096)}
-SERVE_WIDTHS = {**{arch: a[3] for arch, a in SERVE_ATTN.items()}, "xlstm-125m": 768}
+# The attention of the archs of phases 10 to 12 that reach the decode kernel,
+# at the serving shapes (batch BATCH, prompt PROMPT_LEN after the arch's
+# prefix of patches, cache GEN rows longer): (query heads, KV heads,
+# head_dim, prefix).  granite: GQA group 2 at d 64; deepseek: MHA at d 128;
+# jamba: group 4 at d 128; nemotron: group 6 at d 128; qwen: group 8 at d
+# 128 (the decode kernel's largest); internvl2: group 7 at d 64 after 256
+# patches; seamless's decoder self-attention: MHA at d 64.  And the model
+# widths where rmsnorm runs (xlstm has no attention; nemotron and seamless
+# use LayerNorm).
+SERVE_ATTN = {"granite-moe-1b-a400m": (16, 8, 64, 0), "deepseek-moe-16b": (16, 16, 128, 0),
+              "jamba-v0.1-52b": (32, 8, 128, 0), "nemotron-4-15b": (48, 8, 128, 0),
+              "qwen1.5-110b": (64, 8, 128, 0), "internvl2-1b": (14, 2, 64, 256),
+              "seamless-m4t-medium": (16, 16, 64, 0)}
+SERVE_WIDTHS = {"granite-moe-1b-a400m": 1024, "deepseek-moe-16b": 2048, "jamba-v0.1-52b": 4096,
+                "xlstm-125m": 768, "internvl2-1b": 896, "gemma2-27b": 4608, "qwen1.5-110b": 8192}
+# Phase 3: gemma2's attention (32 / 16 heads of 128, logit softcap 50, a
+# 4096-key window on its local layers), which never reaches the decode
+# kernel; a prompt past the window at batch 1, and decode steps at Lq = 1.
+GEMMA_ATTN = dict(hq=32, hkv=16, d=128, window=4096, softcap=50.0)
+GEMMA_LONG = (4500, 4608)  # prompt rows, cache rows
+GEMMA_STEP_CACHE = 4352
+# Phase 3: seamless's non-causal attention (16 heads of 64): the encoder over
+# its 1024 frames, and the cross-attention's prefill and step against them.
+SEAMLESS_ATTN = dict(h=16, d=64, frames=1024)
 # Phase 10's routing check, set before its first run.  Two bf16 paths round
 # differently, and rounding can flip a near-tie between a token's k-th and
 # (k+1)-th expert.  The router's logits are about N(0, 1) (a unit-RMS input,
@@ -237,6 +281,25 @@ REC_REL_L2_TOL = {"xlstm-125m": 1.5e-1, "jamba-v0.1-52b": 5e-2}
 # the steps round apart, and xlstm's bf16 noise and jamba's MoE near-ties
 # (a flipped choice moves its token by a tenth of its MoE output) amplify it.
 DECODE_F32_REL_L2_TOL = 1e-3
+# Phase 12: the other families, each with the depth it is served at (None:
+# the config's own).  gemma2-27b (27.23 B params, 54.5 GB in bf16) and
+# nemotron-4-15b (15.63 B, 31.3 GB) fit one 80 GB card whole; qwen1.5-110b
+# (111.2 B, 222 GB) does not, and its 80 layers are cut to 8 (13.36 B, 26.7
+# GB) at full width.  internvl2-1b and seamless-m4t-medium are whole.
+FAMILY_ARCHS = {"gemma2-27b": None, "nemotron-4-15b": None, "qwen1.5-110b": 8, "internvl2-1b": None,
+                "seamless-m4t-medium": None}
+# Phase 12's kernel path against the plain path, by relative L2 of the
+# last-position logits: MOE_REL_L2_TOL, set before the first run.  The paths
+# differ only in the three kernels, which round as in phases 5, 10 and 11
+# (1.1e-2 to 2.3e-2 there, through up to 28 layers); gemma2's 46 layers
+# compound more roundings, by sqrt(46 / 28) ~ 1.3 if they add as noise, so
+# ~2.5e-2 is expected there, and 5e-2 keeps a margin of two.  The tight test
+# is against fp32: the kernel path at most F32_RATIO times as far as the
+# plain bf16 path.
+FAMILY_REL_L2_TOL = MOE_REL_L2_TOL
+# Phase 12 runs in a child process of its own (see run_families), which must
+# end within this many seconds.
+FAMILY_TIMEOUT = 600
 # Training granite-moe at full width and depth (24 layers, 1.33 B params):
 # T-full's pods, batch and sequence; one iteration counted from launch counts
 # of 0 (and checked), then MOE_TRAIN_TIMED timed.
@@ -383,6 +446,26 @@ def check_close(name: str, got, want, tol: float) -> float:
     if not ok:
         fail(f"{name} disagrees with its plain version")
     return mx
+
+
+def flex_softcap_kwargs(q, k, *, softcap: float, window: int, q_offset: int, kv_len: int) -> dict:
+    """The arguments that make ``flex_attention(q, k, v, **kwargs)`` compute
+    gemma2's attention (``q`` [B, Hq, Lq, d], ``k`` [B, Hkv, Lk, d]): the
+    logit softcap as its score_mod; causal, window and ``kv_len`` as its
+    block mask, made here once, as a model would make it once for all layers
+    of a shape."""
+    import torch
+    from torch.nn.attention.flex_attention import create_block_mask
+
+    def score_mod(s, b, h, qi, ki):
+        return torch.tanh(s / softcap) * softcap
+
+    def mask_mod(b, h, qi, ki):
+        t = qi + q_offset
+        return (ki <= t) & (t - ki < window) & (ki < kv_len)
+
+    mask = create_block_mask(mask_mod, None, None, q.shape[2], k.shape[2], device=q.device)
+    return {"score_mod": score_mod, "block_mask": mask, "enable_gqa": True}
 
 
 def phase_kernels(torch, bench: Bench) -> dict:
@@ -545,25 +628,26 @@ def phase_kernels(torch, bench: Bench) -> dict:
     # -- flash and decode at the serving shapes of phases 10 and 11: a
     # prefill of PROMPT_LEN rows over a cache of PROMPT_LEN + GEN, and decode
     # at every kv_len edge of that cache; model layout, poisoned past kv_len.
-    for arch, (hq, hkv, d, _) in SERVE_ATTN.items():
-        m = PROMPT_LEN + GEN
+    for arch, (hq, hkv, d, prefix) in SERVE_ATTN.items():
+        lq = prefix + PROMPT_LEN
+        m = lq + GEN
         for dtype in (torch.bfloat16, torch.float32):
-            q = randn(B, PROMPT_LEN, hq, d, dtype=dtype)
+            q = randn(B, lq, hq, d, dtype=dtype)
             k = randn(B, m, hkv, d, dtype=dtype)
             v = randn(B, m, hkv, d, dtype=dtype)
             qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-            want = ref.flash_attention_ref(qt, kt, vt, causal=True, kv_len=PROMPT_LEN)
+            want = ref.flash_attention_ref(qt, kt, vt, causal=True, kv_len=lq)
             fp32 = fp32_refs(lambda vv: ref.flash_attention_ref(qt.float(), kt.float(), vv, causal=True,
-                                                                kv_len=PROMPT_LEN), vt, PROMPT_LEN, dtype)
+                                                                kv_len=lq), vt, lq, dtype)
             for value in POISON:
-                kp, vp = poisoned(k, PROMPT_LEN, value), poisoned(v, PROMPT_LEN, value)
+                kp, vp = poisoned(k, lq, value), poisoned(v, lq, value)
                 got = flash_attention(qt, kp.transpose(1, 2), vp.transpose(1, 2), causal=True,
-                                      kv_len=i32(PROMPT_LEN), q_offset=i32(0))
+                                      kv_len=i32(lq), q_offset=i32(0))
                 check("flash_attention", f"flash {str(dtype)[6:]} {arch} B{B} Hq{hq} Hkv{hkv} d{d} "
-                      f"Lq={PROMPT_LEN} cache {m} (strided, poison {value:g})", got, want, dtype, fp32)
+                      f"Lq={lq} cache {m} (strided, poison {value:g})", got, want, dtype, fp32)
             chunk = split_chunk(m, B, hkv, sms)
             qd = randn(B, hq, d, dtype=dtype)
-            for kv in sorted({1, chunk - 1, chunk, chunk + 1, PROMPT_LEN + 1, m - 1, m} & set(range(1, m + 1))):
+            for kv in sorted({1, chunk - 1, chunk, chunk + 1, lq + 1, m - 1, m} & set(range(1, m + 1))):
                 want = ref.decode_attention_ref(qd, kt, vt, kv)
                 fp32 = fp32_refs(lambda vv: ref.decode_attention_ref(qd.float(), kt.float(), vv, kv), vt, kv, dtype)
                 for value in POISON:
@@ -572,6 +656,62 @@ def phase_kernels(torch, bench: Bench) -> dict:
                     check("decode_attention", f"decode {str(dtype)[6:]} {arch} cache [{B}, {m}, {hkv}, {d}] "
                           f"({-(-m // chunk)} splits of {chunk}) kv_len={kv} poison {value:g}", got, want, dtype, fp32)
         del q, k, v, qt, kt, vt, qd, want, kp, vp, got, fp32
+
+    # -- flash where the decode kernel does not go: gemma2's softcap and window,
+    # at a prompt past the window (batch 1) and at its serving prompt, and
+    # at decode steps of one query row (q_offset = kv_len - 1, the window past
+    # it from kv_len 4097 on), over caches poisoned past kv_len; seamless's
+    # non-causal encoder (1024 frames) and cross-attention (its prefill and a
+    # step against the 1024 frames), in the model's layout.
+    ga, sa = GEMMA_ATTN, SEAMLESS_ATTN
+    gkw = dict(causal=True, window=ga["window"], softcap=ga["softcap"])
+    for dtype in (torch.bfloat16, torch.float32):
+        key = str(dtype)[6:]
+        for b_, lq, m in ((1, *GEMMA_LONG), (B, PROMPT_LEN, PROMPT_LEN + GEN)):
+            q = randn(b_, lq, ga["hq"], ga["d"], dtype=dtype)
+            k = randn(b_, m, ga["hkv"], ga["d"], dtype=dtype)
+            v = randn(b_, m, ga["hkv"], ga["d"], dtype=dtype)
+            qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+            want = ref.flash_attention_ref(qt, kt, vt, kv_len=lq, **gkw)
+            fp32 = fp32_refs(lambda vv: ref.flash_attention_ref(qt.float(), kt.float(), vv, kv_len=lq, **gkw),
+                             vt, lq, dtype)
+            for value in POISON:
+                kp, vp = poisoned(k, lq, value), poisoned(v, lq, value)
+                got = flash_attention(qt, kp.transpose(1, 2), vp.transpose(1, 2), kv_len=i32(lq), q_offset=i32(0),
+                                      **gkw)
+                check("flash_attention", f"flash {key} gemma2 B{b_} Hq{ga['hq']} Hkv{ga['hkv']} d{ga['d']} "
+                      f"softcap {ga['softcap']:g} window {ga['window']} Lq={lq} cache {m} (strided, poison "
+                      f"{value:g})", got, want, dtype, fp32)
+            del q, k, v, qt, kt, vt, want, kp, vp, got, fp32
+        m = GEMMA_STEP_CACHE
+        k = randn(B, m, ga["hkv"], ga["d"], dtype=dtype)
+        v = randn(B, m, ga["hkv"], ga["d"], dtype=dtype)
+        kt, vt = k.transpose(1, 2), v.transpose(1, 2)
+        q = randn(B, 1, ga["hq"], ga["d"], dtype=dtype)
+        qt = q.transpose(1, 2)
+        w = ga["window"]
+        for kv in (1, PROMPT_LEN + 1, PROMPT_LEN + GEN, w, w + 1, m):
+            want = ref.flash_attention_ref(qt, kt, vt, kv_len=kv, q_offset=kv - 1, **gkw)
+            fp32 = fp32_refs(lambda vv: ref.flash_attention_ref(qt.float(), kt.float(), vv, kv_len=kv,
+                                                                q_offset=kv - 1, **gkw), vt, kv, dtype)
+            for value in POISON:
+                kp, vp = poisoned(k, kv, value), poisoned(v, kv, value)
+                got = flash_attention(qt, kp.transpose(1, 2), vp.transpose(1, 2), kv_len=i32(kv),
+                                      q_offset=i32(kv - 1), **gkw)
+                check("flash_attention", f"flash {key} gemma2 decode step Lq=1 B{B} cache {m} kv_len={kv} "
+                      f"q_offset={kv - 1} (poison {value:g})", got, want, dtype, fp32)
+        del q, k, v, qt, kt, vt, want, kp, vp, got
+        kv = randn(2, B, sa["frames"], sa["h"], sa["d"], dtype=dtype)
+        kt, vt = kv[0].transpose(1, 2), kv[1].transpose(1, 2)
+        for lq, what in ((sa["frames"], "encoder"), (PROMPT_LEN, "cross prefill"), (1, "cross step")):
+            q = randn(B, lq, sa["h"], sa["d"], dtype=dtype)
+            qt = q.transpose(1, 2)
+            want = ref.flash_attention_ref(qt, kt, vt, causal=False)
+            fp32 = fp32_refs(lambda vv: ref.flash_attention_ref(qt.float(), kt.float(), vv, causal=False), vt,
+                             sa["frames"], dtype)
+            check("flash_attention", f"flash {key} seamless {what} non-causal B{B} H{sa['h']} d{sa['d']} Lq={lq} "
+                  f"Lk={sa['frames']} (strided)", flash_attention(qt, kt, vt, causal=False), want, dtype, fp32)
+        del kv, kt, vt, q, qt, want
 
     # -- decode: poisoned caches with one split and many ------------------------
     for dtype in (torch.bfloat16, torch.float32):
@@ -690,10 +830,10 @@ def phase_kernels(torch, bench: Bench) -> dict:
         empty kernel on the same grid) if given."""
         t = bench.ms(fn)
         tp = bench.ms(plain)
-        tl = bench.ms(lib) if lib is not None else None
+        tl = bench.ms(lib)
         tf = bench.ms(floor) if floor is not None else None
         b, by = bench.bound(nbytes, ops, rate)
-        lib_s = f"{us(tl)}, kernel/library {t / tl:.3g}x" if tl is not None else "n/a"
+        lib_s = f"{us(tl)}, kernel/library {t / tl:.3g}x"
         floor_s = f"; launch floor on its grid {us(tf)}, kernel - floor {us(t - tf)}" if tf is not None else ""
         print(
             f"  {kernel} {shape}: kernel {us(t)}, plain {us(tp)}, library {lib_s}; "
@@ -796,8 +936,8 @@ def phase_kernels(torch, bench: Bench) -> dict:
                 lambda: F.rms_norm(x, (dm,), weight=w1, eps=1e-6),
                 (2 * n * dm + dm) * es, 4 * n * dm, "fp32",
             )
-    for arch, (hq, hkv, d, dm) in SERVE_ATTN.items():
-        lq = PROMPT_LEN
+    for arch, (hq, hkv, d, prefix) in SERVE_ATTN.items():
+        lq = prefix + PROMPT_LEN
         q = randn(B, lq, hq, d, dtype=bf).transpose(1, 2)
         k = randn(B, lq + GEN, hkv, d, dtype=bf).transpose(1, 2)
         v = randn(B, lq + GEN, hkv, d, dtype=bf).transpose(1, 2)
@@ -812,7 +952,7 @@ def phase_kernels(torch, bench: Bench) -> dict:
             (2 * B * hq * lq + 2 * B * hkv * lq) * d * es,
             4 * d * B * hq * (lq * (lq + 1) // 2), "bf16",
         )
-        m = cache_len
+        m = lq + GEN
         qd = randn(B, hq, d, dtype=bf)
         kd = randn(B, m, hkv, d, dtype=bf).transpose(1, 2)
         vd = randn(B, m, hkv, d, dtype=bf).transpose(1, 2)
@@ -825,10 +965,66 @@ def phase_kernels(torch, bench: Bench) -> dict:
             (2 * B * hq + 2 * B * hkv * m) * d * es, 4 * d * B * hq * m, "bf16",
         )
         del q, k, v, qd, kd, vd
+
+    # gemma2: flash at its long prompt (batch 1), its serving prompt and a
+    # decode step (Lq = 1 over the last step's cache).  The library's call is
+    # FlexAttention, compiled, with the softcap as its score_mod and the mask
+    # as its block mask; its output is held against the plain version first,
+    # within ATTN_REL_L2_TOL, so that it is known to compute the same function.
+    # The bound counts the keys each row sees: min(t + 1, window) for row t.
+    from torch.nn.attention.flex_attention import flex_attention
+
+    w = ga["window"]
+    for b_, lq, m, off in ((1, *GEMMA_LONG, 0), (B, PROMPT_LEN, cache_len, 0), (B, 1, cache_len, cache_len - 1)):
+        q = randn(b_, lq, ga["hq"], ga["d"], dtype=bf).transpose(1, 2)
+        k = randn(b_, m, ga["hkv"], ga["d"], dtype=bf).transpose(1, 2)
+        v = randn(b_, m, ga["hkv"], ga["d"], dtype=bf).transpose(1, 2)
+        kv, offs = i32(off + lq), i32(off)
+        live = sum(min(off + t + 1, w) for t in range(lq))
+        keys = min(off + lq, w + lq - 1)  # the rows of k and v that any query row sees
+        shape = (f"B{b_} Hq{ga['hq']} Hkv{ga['hkv']} d{ga['d']} softcap {ga['softcap']:g} window {w} "
+                 f"Lq={lq} kv={off + lq} (gemma2)")
+        fkw = flex_softcap_kwargs(q, k, softcap=ga["softcap"], window=w, q_offset=off, kv_len=off + lq)
+        # One compiled function a shape.  At Lq = 1 its host cost can outlast
+        # the L2 flush that hides the host, so its reading varies by run.
+        flex = torch.compile(flex_attention, dynamic=False)
+        lib = lambda: flex(q, k, v, **fkw)  # noqa: E731
+        want = ref.flash_attention_ref(q.float(), k.float(), v.float(), kv_len=off + lq, q_offset=off, **gkw)
+        t0 = time.monotonic()
+        lib_rel = rel_l2(lib(), want)
+        print(f"  library (FlexAttention, compiled in {time.monotonic() - t0:.1f} s) {shape}: rel L2 to the "
+              f"fp32 plain version {lib_rel:.3e} (tol {ATTN_REL_L2_TOL:g})")
+        if not lib_rel <= ATTN_REL_L2_TOL:
+            fail(f"FlexAttention at {shape} does not compute the plain version's function: rel L2 {lib_rel}")
+        record(
+            "flash_attention", shape,
+            lambda: flash_attention(q, k, v, kv_len=kv, q_offset=offs, **gkw),
+            lambda: ref.flash_attention_ref(q, k, v, kv_len=kv, q_offset=offs, **gkw),
+            lib, (2 * b_ * ga["hq"] * lq + 2 * b_ * ga["hkv"] * keys) * ga["d"] * es,
+            4 * ga["d"] * b_ * ga["hq"] * live, "bf16",
+        )
+        del q, k, v, want, lib, fkw, flex
+    # seamless: the encoder's non-causal attention over its 1024 frames, and
+    # the cross-attention's prefill and step against them.
+    f_ = sa["frames"]
+    k = randn(B, f_, sa["h"], sa["d"], dtype=bf).transpose(1, 2)
+    v = randn(B, f_, sa["h"], sa["d"], dtype=bf).transpose(1, 2)
+    for lq, what in ((f_, "encoder"), (PROMPT_LEN, "cross prefill"), (1, "cross step")):
+        q = randn(B, lq, sa["h"], sa["d"], dtype=bf).transpose(1, 2)
+        record(
+            "flash_attention", f"B{B} H{sa['h']} d{sa['d']} non-causal Lq={lq} Lk={f_} (seamless {what})",
+            lambda: flash_attention(q, k, v, causal=False),
+            lambda: ref.flash_attention_ref(q, k, v, causal=False),
+            lambda: F.scaled_dot_product_attention(q, k, v),
+            (2 * B * sa["h"] * lq + 2 * B * sa["h"] * f_) * sa["d"] * es,
+            4 * sa["d"] * B * sa["h"] * lq * f_, "bf16",
+        )
+    del q, k, v
     return rows
 
 
-def profile_decode(torch, model, params, prompts, smi: str, steps: int = 8, tag: str = "6") -> dict:
+def profile_decode(torch, model, params, prompts, smi: str, steps: int = 8, tag: str = "6",
+                   frontend: dict | None = None) -> dict:
     """Phase 6: torch.profiler over ``steps`` greedy decode steps of the kernel path.
 
     Prints the host's wall time a step (timed without the profiler), the
@@ -837,7 +1033,8 @@ def profile_decode(torch, model, params, prompts, smi: str, steps: int = 8, tag:
     rmsnorm's rows: its kernel's device time and its wrapper's host time (a
     ``record_function`` span around the wrapper, in the profiled run only).
     Returns those numbers; ``tag`` heads the printed lines, and ``smi``
-    (the card's name and power limit) ends them.
+    (the card's name and power limit) ends them.  ``frontend`` holds the
+    model's ``src_embeds`` or ``patch_embeds`` for its prefill.
     """
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -847,10 +1044,10 @@ def profile_decode(torch, model, params, prompts, smi: str, steps: int = 8, tag:
 
     step = make_serve_step(model)
     with torch.inference_mode():
-        cache = model.init_cache(BATCH, PROMPT_LEN + 2 * steps + 2)
+        cache = model.init_cache(BATCH, n_prefix(model.cfg) + PROMPT_LEN + 2 * steps + 2)
         torch.cuda.synchronize()
         t0 = time.monotonic()  # a warm prefill: every shape has run before
-        _, cache = model.prefill(params, prompts, cache)
+        _, cache = model.prefill(params, prompts, cache, **(frontend or {}))
         torch.cuda.synchronize()
         prefill_ms = (time.monotonic() - t0) * 1e3
         tok, cache = step(params, cache, prompts[:, -1:])  # warm
@@ -1749,9 +1946,15 @@ def _f32_view(v):
     return v.float()
 
 
-def cross_run(torch, model, params, prompts, impl, feed=None, counts=None) -> list:
+def n_prefix(cfg) -> int:
+    """The positions a vision model's patches take before the prompt."""
+    return cfg.frontend_len if cfg.frontend == "vision" else 0
+
+
+def cross_run(torch, model, params, prompts, impl, feed=None, counts=None, frontend=None) -> list:
     """Prefill + CROSS_STEPS decode steps with the switch set to ``impl``;
-    decode inputs from ``feed`` if given, else greedy.  Returns the
+    decode inputs from ``feed`` if given, else greedy; ``frontend`` holds the
+    model's ``src_embeds`` or ``patch_embeds``.  Returns the
     last-position logits of each pass over the config's vocabulary (the
     padded rows hold -1e30), in fp32.  With a list ``counts``, the
     launch counts are set to 0 just before each pass and appended just after."""
@@ -1771,8 +1974,9 @@ def cross_run(torch, model, params, prompts, impl, feed=None, counts=None) -> li
     set_attn_impl(impl)
     try:
         with torch.inference_mode():
-            cache = model.init_cache(BATCH, PROMPT_LEN + CROSS_STEPS + 1)
-            logits, cache = counted(model.prefill, params, prompts, cache)
+            cache = model.init_cache(BATCH, n_prefix(model.cfg) + PROMPT_LEN + CROSS_STEPS + 1)
+            prefill = functools.partial(model.prefill, **(frontend or {}))
+            logits, cache = counted(prefill, params, prompts, cache)
             vocab = model.cfg.vocab
             outs = [logits[:, -1, :vocab].float()]
             for i in range(CROSS_STEPS):
@@ -1789,14 +1993,30 @@ def fmt_list(xs, f: str = ".3e") -> str:
 
 
 def serve_launches(cfg) -> tuple[dict, dict]:
-    """The launches of a prefill and of a decode step of ``cfg``: rmsnorm on
-    each block's norms and the final one, flash at each attention layer of a
-    prefill, decode attention at each of a step; a recurrent mixer launches none."""
+    """The launches of a prefill and of a decode step of ``cfg``.
+
+    rmsnorm (none where the config's norm is LayerNorm, which is plain in
+    both packages) on each block's norms (norm1, norm2 with an FFN, the
+    cross-attention's, and two post norms with ``post_block_norm``), the
+    final one, and at prefill the encoder's (2 a layer and ``enc_norm``).
+    Flash at each attention layer of a prefill, the encoder's and the
+    cross-attentions included; at a step, flash at each cross-attention and
+    at each attention layer with a window (``attn_local``) or a logit
+    softcap, which the decode kernel does not take, and decode attention at
+    the others.  A recurrent mixer launches none."""
     kinds = cfg.layer_seq()
-    norms = len(kinds) + sum(f != "none" for _, f in kinds) + 1
-    attn = sum(m == "attn" for m, _ in kinds)
-    return ({"rmsnorm": norms, "flash_attention": attn, "decode_attention": 0},
-            {"rmsnorm": norms, "flash_attention": 0, "decode_attention": attn})
+    cross = cfg.is_encoder_decoder
+    per_ffn = 1 + cfg.post_block_norm
+    norms = sum(1 + cfg.post_block_norm + cross + (f != "none") * per_ffn for _, f in kinds) + 1
+    enc_norms = 2 * cfg.n_enc_layers + 1 if cross else 0
+    if cfg.norm != "rmsnorm":
+        norms = enc_norms = 0
+    attn = [m for m, _ in kinds if m in ("attn", "attn_local")]
+    to_flash = sum(cfg.attn_logit_softcap > 0 or (m == "attn_local" and cfg.sliding_window > 0) for m in attn)
+    n_cross = len(kinds) if cross else 0
+    n_enc = cfg.n_enc_layers if cross else 0
+    return ({"rmsnorm": norms + enc_norms, "flash_attention": len(attn) + n_cross + n_enc, "decode_attention": 0},
+            {"rmsnorm": norms, "flash_attention": to_flash + n_cross, "decode_attention": len(attn) - to_flash})
 
 
 def serve_counted(torch, tag: str, cfg, smi: str, n_layers=None) -> tuple[dict, dict, float]:
@@ -1832,7 +2052,7 @@ def serve_counted(torch, tag: str, cfg, smi: str, n_layers=None) -> tuple[dict, 
     return res, counts, peak_gb
 
 
-def hold_paths(torch, tag: str, model, params, prompts, tol: float) -> dict:
+def hold_paths(torch, tag: str, model, params, prompts, tol: float, frontend=None) -> dict:
     """Prefill + CROSS_STEPS decode steps on the kernel path, with each pass's
     launches counted from 0 and checked; then on the plain path free (its own
     MoE routing, printed) and with routing forced to the kernel path's
@@ -1842,7 +2062,8 @@ def hold_paths(torch, tag: str, model, params, prompts, tol: float) -> dict:
     relative L2, the plain path's own top-k agrees with the kernel path's on
     ROUTE_AGREE of the choices of every MoE layer, and the kernel path is at
     most F32_RATIO times as far from fp32 as the plain bf16 path; each gate
-    fails on NaN.  Returns the numbers and ``feed``, the kernel path's tokens."""
+    fails on NaN.  ``frontend`` is passed to each prefill.  Returns the
+    numbers and ``feed``, the kernel path's tokens."""
     from repro_torch.models import Model
 
     cfg = model.cfg
@@ -1852,7 +2073,7 @@ def hold_paths(torch, tag: str, model, params, prompts, tol: float) -> dict:
     tape = RouteTape()
     path = []
     with tape.record() as rec:
-        kern = cross_run(torch, model, params, prompts, "kernel", counts=path)
+        kern = cross_run(torch, model, params, prompts, "kernel", counts=path, frontend=frontend)
     print(f"[{tag}] {arch} launches a prefill {path[0]}, a decode step {path[1]} "
           f"(expected {per_prefill}, {per_step})")
     if path[0] != per_prefill or any(c != per_step for c in path[1:]):
@@ -1861,12 +2082,12 @@ def hold_paths(torch, tag: str, model, params, prompts, tol: float) -> dict:
         fail(f"{arch}: non-finite logits on the kernel path")
     feed = [o.argmax(-1, keepdim=True).int() for o in kern[:-1]]
     with tape.record() as rec_free:
-        free = cross_run(torch, model, params, prompts, "plain", feed)
+        free = cross_run(torch, model, params, prompts, "plain", feed, frontend=frontend)
     with tape.replay(rec) as own:
-        forced = cross_run(torch, model, params, prompts, "plain", feed)
+        forced = cross_run(torch, model, params, prompts, "plain", feed, frontend=frontend)
     m32 = Model(dataclasses.replace(cfg, dtype="float32"), "cuda")
     with tape.replay(rec) as own32:
-        f32 = cross_run(torch, m32, F32View(params), prompts, "plain", feed)
+        f32 = cross_run(torch, m32, F32View(params), prompts, "plain", feed, frontend=frontend)
     del m32
     torch.cuda.empty_cache()
     rel_free = [rel_l2(a, b) for a, b in zip(kern, free)]
@@ -1905,28 +2126,40 @@ def hold_paths(torch, tag: str, model, params, prompts, tol: float) -> dict:
 
 
 def decode_bound(model, params, sku: str) -> tuple[float, float]:
-    """The least time of a decode step, ms, and its GB: every weight read
-    once (the embedding table only where it is tied, as the head), each
-    attention layer's K and V up to their mean length over the timed and
-    profiled steps, and each recurrent state read and written."""
+    """The least time of a decode step, ms, and its GB: every weight of the
+    decoder and the head read once (the embedding table only where it is
+    tied, as the head; not the encoder's or ``vision_proj``, which only a
+    prefill reads), each attention layer's K and V up to their mean length
+    over the timed and profiled steps (at most the window of a local layer),
+    the encoder's output that the cross-attention reads, and each recurrent
+    state read and written, at the memory rate."""
     from repro_torch._bridge import tree_leaves
+
+    def size(tree) -> int:
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
 
     cfg = model.cfg
     emb = params["embed"]
-    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
-    if not cfg.tied_embeddings:
-        nbytes -= emb.numel() * emb.element_size()
-    rows = PROMPT_LEN + 9  # the mean cache length over the timed and the profiled steps
-    n_attn = sum(m == "attn" for m, _ in cfg.layer_seq())
-    nbytes += 2 * n_attn * BATCH * rows * cfg.kv_dim * emb.element_size()
+    es = emb.element_size()
+    read = [params["layers"], params["final_norm"], params.get("lm_head")]
+    if cfg.tied_embeddings:
+        read.append(emb)
+    nbytes = size(read)
+    rows = n_prefix(cfg) + PROMPT_LEN + 9  # the mean cache length over the timed and the profiled steps
+    kinds = cfg.layer_seq()
+    kv_rows = sum(min(rows, cfg.sliding_window) if m == "attn_local" and cfg.sliding_window else rows
+                  for m, _ in kinds if m in ("attn", "attn_local"))
+    nbytes += 2 * BATCH * kv_rows * cfg.kv_dim * es
+    if cfg.is_encoder_decoder:
+        nbytes += BATCH * cfg.frontend_len * cfg.d_model * es
     states = [e["state"] for e in model.init_cache(BATCH, 1)["layers"] if "state" in e]
-    nbytes += 2 * sum(t.numel() * t.element_size() for t in tree_leaves(states))
+    nbytes += 2 * size(states)
     return nbytes / PEAKS[sku]["bytes"] * 1e3, nbytes / 1e9
 
 
-def profiled_decode_bound(torch, tag: str, model, params, prompts, smi: str, sku: str) -> dict:
+def profiled_decode_bound(torch, tag: str, model, params, prompts, smi: str, sku: str, frontend=None) -> dict:
     """Phase 6's decode profile, set beside the step's bound (:func:`decode_bound`)."""
-    prof = profile_decode(torch, model, params, prompts, smi, tag=tag)
+    prof = profile_decode(torch, model, params, prompts, smi, tag=tag, frontend=frontend)
     bound_ms, gb = decode_bound(model, params, sku)
     print(f"[{tag}] {model.cfg.name} decode step: bound {bound_ms:.3f} ms ({gb:.2f} GB of weights, cache and "
           f"state at {PEAKS[sku]['bytes'] / 1e12:.2f} TB/s); measured wall {prof['step_wall_ms']:.3f} ms, "
@@ -2101,14 +2334,15 @@ def no_host_sync(torch, tag: str, model, params, x) -> None:
           f"their state under torch.cuda.set_sync_debug_mode('error'): no synchronising operation")
 
 
-def decode_vs_forward(torch, tag: str, model, params, prompts, feed) -> dict:
+def decode_vs_forward(torch, tag: str, model, params, prompts, feed, frontend=None) -> dict:
     """Prefill + CROSS_STEPS decode steps against one cache-free forward over
     the same tokens, the last-position logits of each pass against the
     forward's at that position, on the kernel path: in fp32 (the bf16 weights
     read through :class:`F32View`), gated by DECODE_F32_REL_L2_TOL, and in
     bf16, printed.  A MoE FFN gets a capacity factor of E / k, so that no
     choice is dropped in either run (a forward routes all L tokens at once,
-    a step B)."""
+    a step B).  ``frontend`` goes to the prefill and to the forward, whose
+    logits at the patches of a vision model are passed over."""
     from repro_torch.models import Model, set_attn_impl
 
     cfg = model.cfg
@@ -2120,11 +2354,12 @@ def decode_vs_forward(torch, tag: str, model, params, prompts, feed) -> dict:
     for label, c, p in (("fp32", dataclasses.replace(cfg, dtype="float32"), F32View(params)),
                         ("bf16", cfg, params)):
         m = Model(c, "cuda")
-        dec = cross_run(torch, m, p, prompts, "kernel", feed)
+        dec = cross_run(torch, m, p, prompts, "kernel", feed, frontend=frontend)
         set_attn_impl("kernel")
         try:
             with torch.inference_mode():
-                full = m.forward(p, tokens)[:, PROMPT_LEN - 1 :, : cfg.vocab].float()
+                first = n_prefix(cfg) + PROMPT_LEN - 1
+                full = m.forward(p, tokens, **(frontend or {}))[:, first:, : cfg.vocab].float()
         finally:
             set_attn_impl(None)
         out[label] = [rel_l2(d, full[:, i]) for i, d in enumerate(dec)]
@@ -2138,10 +2373,11 @@ def decode_vs_forward(torch, tag: str, model, params, prompts, feed) -> dict:
     return out
 
 
-def profile_prefill(torch, tag: str, model, params, prompts, smi: str) -> dict:
+def profile_prefill(torch, tag: str, model, params, prompts, smi: str, frontend=None) -> dict:
     """A prefill's wall time (warm, the median of 3) beside its device time
-    and ops (one profiled prefill), and each recurrent mixer's the same way
-    at the prefill's rows: the host's share of a prefill."""
+    and ops (one profiled prefill, with ``frontend`` passed to it), and each
+    recurrent mixer's the same way at the prefill's rows: the host's share of
+    a prefill."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2166,10 +2402,11 @@ def profile_prefill(torch, tag: str, model, params, prompts, smi: str) -> dict:
         return {"wall_ms": wall, "device_ms": ms, "device_ops": sum(e.count for e in dev), "busy_share": ms / wall}
 
     cfg = model.cfg
-    out = {"prefill": timed(lambda: model.prefill(params, prompts, model.init_cache(BATCH, PROMPT_LEN)))}
+    out = {"prefill": timed(lambda: model.prefill(params, prompts, model.init_cache(BATCH, n_prefix(cfg) + PROMPT_LEN),
+                                                  **(frontend or {})))}
     kinds = [m for m, _ in cfg.layer_seq()]
     x = params["embed"][prompts.long()]
-    for mixer in sorted(set(kinds) - {"attn"}):
+    for mixer in sorted(set(kinds) - {"attn", "attn_local"}):
         p = params["layers"][kinds.index(mixer)]["mixer"]
         mix = getattr(recurrent, f"{mixer}_mix")
         out[mixer] = timed(lambda p=p, mix=mix: mix(cfg, p, x))
@@ -2180,15 +2417,16 @@ def profile_prefill(torch, tag: str, model, params, prompts, smi: str) -> dict:
     return out
 
 
-def rec_serve(torch, arch: str, n_layers, smi: str, sku: str) -> dict:
-    """Phase 11a: serve ``arch`` (depth cut to ``n_layers`` if given) through
-    ``serve`` on cuda with exact launch counts; hold the kernel path against
-    the plain path (MoE routing forced) and fp32; check the mixers for host
-    syncs; hold decode against a cache-free forward; profile prefill and
-    decode."""
+def serve_and_hold(torch, tag: str, arch: str, n_layers, tol: float, smi: str, sku: str) -> dict:
+    """Phases 11a and 12: serve ``arch`` (depth cut to ``n_layers`` if given)
+    through ``serve`` on cuda with exact launch counts; hold the kernel path
+    against the plain path (MoE routing forced) within ``tol`` and against
+    fp32; check any recurrent mixer for host syncs; hold decode against a
+    cache-free forward; profile prefill and decode, the latter beside its
+    bound.  The frontend's inputs are made as ``serve`` makes them."""
     from repro_torch._bridge import tree_leaves
     from repro_torch.configs import get_config
-    from repro_torch.launch.serve import make_prompts
+    from repro_torch.launch.serve import make_frontend, make_prompts
     from repro_torch.models import Model
 
     cfg = get_config(arch)
@@ -2198,33 +2436,49 @@ def rec_serve(torch, arch: str, n_layers, smi: str, sku: str) -> dict:
     kinds = cfg.layer_seq()
     mixers = {m: sum(k == m for k, _ in kinds) for m in dict.fromkeys(k for k, _ in kinds)}
     ffns = {f: sum(k == f for _, k in kinds) for f in dict.fromkeys(k for _, k in kinds)}
-    print(f"[11] serve {arch}: {len(kinds)} of {full_layers} layers at full width, mixers {mixers}, FFNs {ffns}, "
-          f"d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, vocab {cfg.vocab}, "
-          f"{cfg.dtype}")
-    res, counts, peak_gb = serve_counted(torch, "11", cfg, smi, n_layers=n_layers)
+    extra = [cfg.norm, cfg.activation]
+    if cfg.sliding_window:
+        extra.append(f"window {cfg.sliding_window}")
+    if cfg.attn_logit_softcap or cfg.final_logit_softcap:
+        extra.append(f"softcaps {cfg.attn_logit_softcap:g} / {cfg.final_logit_softcap:g}")
+    if cfg.post_block_norm:
+        extra.append("post norms")
+    if cfg.qkv_bias:
+        extra.append("QKV bias")
+    if cfg.is_encoder_decoder:
+        extra.append(f"{cfg.n_enc_layers} encoder layers over {cfg.frontend_len} frames, cross-attention")
+    if cfg.frontend == "vision":
+        extra.append(f"{cfg.frontend_len} patches before the prompt")
+    print(f"[{tag}] serve {arch}: {len(kinds)} of {full_layers} layers at full width, mixers {mixers}, FFNs "
+          f"{ffns}, d {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff {cfg.d_ff}, "
+          f"vocab {cfg.vocab}, {', '.join(extra)}, {cfg.dtype}")
+    res, counts, peak_gb = serve_counted(torch, tag, cfg, smi, n_layers=n_layers)
 
     model = Model(cfg, "cuda")
     params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
     n_params = sum(t.numel() for t in tree_leaves(params))
     gb = sum(t.numel() * t.element_size() for t in tree_leaves(params)) / 1e9
-    print(f"[11] {arch}: {n_params / 1e9:.3f} B params, {gb:.2f} GB")
+    print(f"[{tag}] {arch}: {n_params / 1e9:.3f} B params, {gb:.2f} GB")
     prompts = make_prompts(cfg, BATCH, PROMPT_LEN, SEED, "cuda")
-    held = hold_paths(torch, "11", model, params, prompts, REC_REL_L2_TOL[arch])
+    frontend = make_frontend(cfg, BATCH, SEED, "cuda")
+    held = hold_paths(torch, tag, model, params, prompts, tol, frontend)
     feed = held.pop("feed")
-    no_host_sync(torch, "11", model, params, params["embed"][prompts.long()])
-    dvf = decode_vs_forward(torch, "11", model, params, prompts, feed)
-    pre = profile_prefill(torch, "11", model, params, prompts, smi)
-    bound = profiled_decode_bound(torch, "11", model, params, prompts, smi, sku)
+    if set(mixers) - {"attn", "attn_local"}:
+        no_host_sync(torch, tag, model, params, params["embed"][prompts.long()])
+    dvf = decode_vs_forward(torch, tag, model, params, prompts, feed, frontend)
+    pre = profile_prefill(torch, tag, model, params, prompts, smi, frontend)
+    bound = profiled_decode_bound(torch, tag, model, params, prompts, smi, sku, frontend)
     if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
-        fail("TF32 was turned on during phase 11")
-    del model, params, prompts
+        fail(f"TF32 was turned on during phase {tag}")
+    del model, params, prompts, frontend
+    gc.collect()
     torch.cuda.empty_cache()
     launches = held.pop("launches")
     return {
-        "layers": len(kinds), "params": n_params, "params_gb": gb, "launches": {"serve": counts, **launches},
-        "prefill_ms": res["prefill_s"] * 1e3, "decode_ms": res["decode_s"] * 1e3,
-        "tok_per_s": res["tok_per_s"], "peak_gb": peak_gb, **held, "decode_vs_forward": dvf,
-        "prefill_profile": pre, **bound, "device": smi,
+        "layers": len(kinds), "of_layers": full_layers, "params": n_params, "params_gb": gb,
+        "launches": {"serve": counts, **launches}, "prefill_ms": res["prefill_s"] * 1e3,
+        "decode_ms": res["decode_s"] * 1e3, "tok_per_s": res["tok_per_s"], "peak_gb": peak_gb, **held,
+        "decode_vs_forward": dvf, "prefill_profile": pre, **bound, "device": smi,
     }
 
 
@@ -2293,9 +2547,53 @@ def phase_recurrent(torch, smi: str, sku: str) -> dict:
     """Phase 11: the recurrent archs on the card — serve each (each model
     freed before the next is made), then each mixer against the CPU."""
     torch.cuda.empty_cache()
-    out = {arch: rec_serve(torch, arch, n, smi, sku) for arch, n in REC_ARCHS.items()}
+    out = {arch: serve_and_hold(torch, "11", arch, n, REC_REL_L2_TOL[arch], smi, sku)
+           for arch, n in REC_ARCHS.items()}
     out["card_vs_cpu"] = mixers_card_vs_cpu(torch, smi)
     return out
+
+
+def phase_families(torch, smi: str, sku: str) -> dict:
+    """Phase 12: the other families on the card — serve each (each model
+    freed before the next is made)."""
+    return {arch: serve_and_hold(torch, "12", arch, n, FAMILY_REL_L2_TOL, smi, sku)
+            for arch, n in FAMILY_ARCHS.items()}
+
+
+def families_child(torch, out: Path) -> int:
+    """``--families OUT``: phase 12 alone, in a process of its own; writes
+    its result to OUT as JSON."""
+    from repro_torch.kernels import ops as kops
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kops.build()  # built already by the parent: found by its hash
+    res = phase_families(torch, nvidia_smi(), sku_of(torch.cuda.get_device_name(0)))
+    out.write_text(json.dumps(res))
+    return 0
+
+
+def run_families() -> dict:
+    """Phase 12 in a child process (``--families OUT``), started right after
+    the build.  In this process, phase 12's profiles of the big models made
+    phase 7's later profiles lose kernel records (a P-full replay showed 2
+    of its 3 rmsnorm kernels); a process of its own keeps them apart, and
+    finds the card free.  The child's lines print as they come; its result
+    is read back from OUT.  Its failure, or a child past FAMILY_TIMEOUT,
+    fails the run."""
+    out = ROOT / "build" / "families.json"
+    out.unlink(missing_ok=True)
+    sys.stdout.flush()
+    t0 = time.monotonic()
+    try:
+        rc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--families", str(out)], cwd=ROOT,
+                            timeout=FAMILY_TIMEOUT).returncode
+    except subprocess.TimeoutExpired:
+        fail(f"phase 12 (the families' child process) ran past {FAMILY_TIMEOUT} s")
+    if rc != 0:
+        fail(f"phase 12 (the families' child process) exited {rc}")
+    print(f"[12] the families' child process took {time.monotonic() - t0:.1f} s")
+    return json.loads(out.read_text())
 
 
 def fmt_ms(xs) -> str:
@@ -2413,6 +2711,8 @@ def main() -> int:
     ap.add_argument("--dataplane-compare", metavar=("A", "B"), type=Path, nargs=2,
                     help="--dataplane-times of checkouts A and B in alternating pairs")
     ap.add_argument("--pairs", type=int, default=10, help="pairs for --dataplane-compare")
+    ap.add_argument("--families", metavar="OUT", type=Path,
+                    help="only phase 12, the other families, its result to OUT (the child process of a whole run)")
     opts = ap.parse_args()
     # One process makes and frees models of up to 34 GB and trains two more:
     # with fixed segments the freed memory splinters, and phase 11's jamba
@@ -2420,6 +2720,10 @@ def main() -> int:
     # no free block of 1.75 GiB (PR 18, call 2).  Segments that grow in place
     # do not splinter so.  A caller's own setting is kept.
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    # Phase 3 compiles FlexAttention (the library's call for gemma2's
+    # attention): its caches go under the checkout's build directory.
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR", str(ROOT / "build" / "inductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR", str(ROOT / "build" / "triton"))
     try:
         import torch
     except ModuleNotFoundError:
@@ -2441,6 +2745,8 @@ def main() -> int:
     if opts.dataplane_times is not None:
         return dataplane_times(torch, root)
     sys.path.insert(0, str(ROOT / "src"))
+    if opts.families is not None:
+        return families_child(torch, opts.families)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -2476,6 +2782,9 @@ def main() -> int:
                   f"{max(r[1] for r in report)} registers, {len(spilled)} with spills")
         if kernel == "rmsnorm" and spilled:
             fail(f"rmsnorm spills registers: {spilled}")
+
+    # -- 12. the other families, in a child process, before this one holds memory --------
+    families = run_families()
 
     # -- 3. kernels vs plain -----------------------------------------------------
     bench = Bench(torch, sku)
@@ -2602,6 +2911,8 @@ def main() -> int:
                 f"train {MOE_TRAIN_ARCH}": moe["train"]["launches"][k],
                 **{f"serve {arch}": {path: c[k] for path, c in recurrent[arch]["launches"].items()}
                    for arch in REC_ARCHS},
+                **{f"serve {arch}": {path: c[k] for path, c in families[arch]["launches"].items()}
+                   for arch in FAMILY_ARCHS},
             },
         })
     print(json.dumps({"dataplane": dataplane}))
@@ -2609,6 +2920,7 @@ def main() -> int:
     print(json.dumps({"train": train}))
     print(json.dumps({"moe": moe}))
     print(json.dumps({"recurrent": recurrent}))
+    print(json.dumps({"families": families}))
     print(f"kernels: {', '.join(r['name'] for r in record)}; {time.monotonic() - t_start:.1f} s in all")
     print(smi)
     print(json.dumps({"kernels": record}))

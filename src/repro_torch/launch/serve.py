@@ -13,7 +13,11 @@ Usage::
 serves xlstm-125m, the default arch, as the reference's does.  ``--layers``
 cuts the depth: ``--arch jamba-v0.1-52b --full --layers 8`` serves one
 period of jamba's pattern at full width (its 32 layers, 103 GB in bf16, do
-not fit on one 80 GB card).
+not fit on one 80 GB card), and ``--arch qwen1.5-110b --full --layers 8``
+a tenth of qwen's 80 (222 GB in bf16).  An encoder-decoder model
+(seamless-m4t-medium) is given frame embeddings and a vision model
+(internvl2-1b) patch embeddings, drawn as the reference draws them (see
+:func:`make_frontend`).
 """
 
 from __future__ import annotations
@@ -47,25 +51,47 @@ def make_prompts(cfg, batch: int, prompt_len: int, seed: int, device) -> torch.T
     )
 
 
-def generate(model: Model, params: dict, prompts: torch.Tensor, gen: int) -> dict:
-    """Prefill ``prompts`` [B, L0], then decode greedily to ``gen`` tokens each.
+def make_frontend(cfg, batch: int, seed: int, device) -> dict:
+    """The frontend's inputs, as the reference's ``serve`` draws them:
+    ``src_embeds`` for an encoder-decoder model (from ``seed + 2``) and
+    ``patch_embeds`` for a vision model (from ``seed + 3``), each
+    ``N(0, 1) · 0.1`` of ``[batch, frontend_len, d_model]`` in ``cfg.dtype``;
+    ``{}`` for a model with neither."""
+    dev = resolve_device(device)
+    dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[cfg.dtype]
+    shape = (batch, cfg.frontend_len, cfg.d_model)
+    out = {}
+    for name, wanted, offset in (("src_embeds", cfg.is_encoder_decoder, 2),
+                                 ("patch_embeds", cfg.frontend == "vision", 3)):
+        if wanted:
+            gen = torch.Generator(device=dev).manual_seed(seed + offset)
+            out[name] = (torch.randn(shape, generator=gen, device=dev) * 0.1).to(dtype)
+    return out
+
+
+def generate(model: Model, params: dict, prompts: torch.Tensor, gen: int, frontend: dict | None = None) -> dict:
+    """Prefill ``prompts`` [B, L0] (with ``frontend``, the model's
+    ``src_embeds`` or ``patch_embeds``), then decode greedily to ``gen``
+    tokens each.
 
     Returns the reference's dict: ``tokens`` (int32 numpy [B, gen]),
     ``prefill_s``, ``decode_s`` and ``tok_per_s`` (decode tokens a second).
     Each token is moved to the host as it is made, as the reference does.
     """
     dev = model.device
+    cfg = model.cfg
     batch, prompt_len = prompts.shape
     prefill = make_prefill_step(model)
     step = make_serve_step(model)
-    cache = model.init_cache(batch, prompt_len + gen)
+    max_len = prompt_len + gen + (cfg.frontend_len if cfg.frontend == "vision" else 0)
+    cache = model.init_cache(batch, max_len)
     if dev.type == "cuda":
         kops.build()  # first use builds the kernels; keep that out of the timings
     _sync(dev)
 
     with torch.inference_mode():
         t0 = time.monotonic()
-        next_tok, cache = prefill(params, {"tokens": prompts}, cache)
+        next_tok, cache = prefill(params, {"tokens": prompts, **(frontend or {})}, cache)
         _sync(dev)
         t_prefill = time.monotonic() - t0
 
@@ -109,7 +135,7 @@ def serve(
     model = Model(cfg, dev)
     params = model.init(torch.Generator(device=dev).manual_seed(seed))
     prompts = make_prompts(cfg, batch, prompt_len, seed, dev)
-    res = generate(model, params, prompts, gen)
+    res = generate(model, params, prompts, gen, make_frontend(cfg, batch, seed, dev))
     print(
         f"[serve] arch={cfg.name} device={dev} batch={batch} prefill={prompt_len} "
         f"gen={gen}: prefill {res['prefill_s'] * 1e3:.1f} ms, "
@@ -122,7 +148,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(
         description=(
             "Serve a model with the PyTorch/CUDA port: prefill + greedy decode. "
-            f"Archs served so far: {', '.join(sorted(ARCHS))}."
+            f"Archs: {', '.join(sorted(ARCHS))}."
         )
     )
     ap.add_argument("--arch", default="xlstm-125m")

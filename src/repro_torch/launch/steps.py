@@ -53,7 +53,10 @@ def make_grad_step(model: Model):
 
 def make_prefill_step(model: Model):
     def prefill_step(params: Params, batch: Params, cache: Params):
-        logits, cache = model.prefill(params, batch["tokens"], cache)
+        logits, cache = model.prefill(
+            params, batch["tokens"], cache,
+            src_embeds=batch.get("src_embeds"), patch_embeds=batch.get("patch_embeds"),
+        )
         next_tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
         return next_tok, cache
 

@@ -1,9 +1,8 @@
 """Model configuration — the port's own copy of ``repro.models.config``.
 
 The fields, defaults, derived values and the smoke reduction are the
-reference's, so a config means the same model in both packages.  The port
-serves only the dense subset so far (see :mod:`repro_torch.models.model`);
-the other fields are kept so that every reference config can be expressed.
+reference's, so a config means the same model in both packages, and the
+port serves every one of them (see :mod:`repro_torch.models.model`).
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Shared neural layers: norms, RoPE, MLPs, and GQA attention (dense subset).
+"""Shared neural layers: norms, RoPE, MLPs, and GQA attention.
 
 The port of ``repro.models.layers``.  Two implementations sit behind one
 switch, :func:`set_attn_impl` (the reference's ``set_attn_impl``, with the
@@ -8,7 +8,11 @@ values ``"plain"`` and ``"kernel"``):
   a cache, or with a cache and ``L > 1`` (prefill), launches the flash kernel
   (``q_offset = cache_len``, ``kv_len = cache_len + L``); attention with a
   cache and ``L == 1`` (decode) launches the decode kernel
-  (``kv_len = cache_len + 1``).  A CPU tensor under ``"kernel"`` raises.
+  (``kv_len = cache_len + 1``), unless the layer has a sliding window or a
+  logit softcap, which the decode kernel does not take (nor does the
+  reference's): such a step is one flash launch at ``Lq = 1``.
+  Cross-attention (``cross_kv``) is one non-causal flash launch at any L.
+  A CPU tensor under ``"kernel"`` raises.
   With grad on, rmsnorm and flash run under
   :class:`repro_torch.kernels.ops.KernelWithPlainGrad` (kernel forward,
   the plain version's VJP backward); decode attention raises.
@@ -173,7 +177,7 @@ def apply_mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Attention (GQA; causal / bidirectional / sliding window; softcap)
+# Attention (GQA; causal / bidirectional / sliding window / cross; softcap)
 # ---------------------------------------------------------------------------
 
 
@@ -288,6 +292,7 @@ def attention_block(
     causal: bool,
     window: int = 0,
     cache: Optional[Params] = None,  # {"k", "v", "len"}: prefill/decode cache
+    cross_kv: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
     use_rope: bool = True,
 ) -> tuple[torch.Tensor, Optional[Params]]:
     """Projections + RoPE + SDPA (+ cache update).
@@ -296,9 +301,21 @@ def attention_block(
     ``dynamic_update_slice``): rows ``len .. len+L`` of ``cache["k"]`` and
     ``cache["v"]`` are overwritten, and the returned cache holds the same
     tensors with ``len + L``.  ``len`` stays on the device throughout.
+
+    ``cross_kv = (k, v)``, each ``[B, S, Hkv, d]``: cross-attention over
+    them, as the reference: RoPE on q only (when ``use_rope``), no mask
+    (one flash launch under the kernel switch, at any L), the logit softcap,
+    and ``cache`` returned untouched.
     """
     b, l, _ = x.shape
     q = linear(p["q"], x).reshape(b, l, cfg.n_heads, cfg.head_dim)
+    if cross_kv is not None:
+        k, v = cross_kv
+        if use_rope:
+            q = apply_rope(q, positions, cfg.rope_theta)
+        out = sdpa(q, k, v, causal=False, softcap=cfg.attn_logit_softcap)
+        return linear(p["o"], out.reshape(b, l, cfg.q_dim)), cache
+
     k = linear(p["k"], x).reshape(b, l, cfg.n_kv_heads, cfg.head_dim)
     v = linear(p["v"], x).reshape(b, l, cfg.n_kv_heads, cfg.head_dim)
     if use_rope:

@@ -3,7 +3,9 @@
 ``SyntheticLM`` is a numpy copy: batches must be equal bit for bit.
 Checkpoints must cross frameworks both ways bit for bit: a bf16 tree written
 by ``repro.ckpt`` reads back into the port, and a tree the port writes reads
-back into ``repro.ckpt`` with the same leaf names, files, shapes and dtypes.
+back into ``repro.ckpt`` with the same leaf names, files, shapes and dtypes,
+for every family (dense, MoE, recurrent, and gemma2's post norms, seamless's
+encoder and cross-attention, internvl2's ``vision_proj``).
 """
 
 import dataclasses
@@ -80,6 +82,20 @@ VARIANTS = {
     # D and dt bias; the mLSTM's fp32 gates; the sLSTM's g_* with fp32 biases.
     "xlstm-bf16": ("xlstm-125m", {"dtype": "bfloat16", "n_layers": 4}),
     "jamba-bf16": ("jamba-v0.1-52b", {"dtype": "bfloat16"}),
+    # The other families' trees: gemma2's post norms (a local and a global
+    # layer), seamless's encoder stack, enc_norm and each decoder block's
+    # norm_cross and cross (LayerNorm: w and b), internvl2's vision_proj
+    # beside its QKV biases.
+    "gemma2-bf16": ("gemma2-27b", {"dtype": "bfloat16"}),
+    "seamless-bf16": ("seamless-m4t-medium", {"dtype": "bfloat16", "n_layers": 2}),
+    "internvl2-bf16": ("internvl2-1b", {"dtype": "bfloat16", "n_layers": 2}),
+}
+# Leaves of the other families, by the reference's names.
+FAMILY_LEAVES = {
+    "gemma2-bf16": {"decoder/body/0/post_norm1/w", "decoder/body/1/post_norm2/w", "decoder/body/1/mixer/q/w"},
+    "seamless-bf16": {"encoder/body/0/mixer/q/w", "encoder/body/0/norm2/b", "enc_norm/w", "enc_norm/b",
+                      "decoder/body/0/norm_cross/b", "decoder/body/0/cross/k/w", "decoder/body/0/cross/o/w"},
+    "internvl2-bf16": {"vision_proj/w", "decoder/body/0/mixer/q/b"},
 }
 # The leaves that stay fp32 in a bf16 tree (as the reference inits them).
 FP32_LEAVES = ("router/w", "A_log", "/D", "dt_proj/b", "i_gate/w", "f_gate/w",
@@ -127,11 +143,13 @@ def test_params_to_jax_inverts_params_from_jax(variant):
     if tcfg.moe.n_experts:  # the MoE leaves, by the reference's names
         j = [f for _, f in tcfg.pattern].index("moe")  # jamba's first MoE FFN is at position 1
         assert {f"decoder/body/{j}/ffn/gate", f"decoder/body/{j}/ffn/router/w"} <= set(names)
-    if tcfg.pattern[0][0] != "attn":  # the recurrent leaves, by the reference's names
+    if tcfg.pattern[0][0] in ("mamba", "mlstm"):  # the recurrent leaves, by the reference's names
         want = ({"decoder/body/0/mixer/A_log", "decoder/body/0/mixer/dt_proj/b", "decoder/body/0/mixer/conv_w"}
                 if "jamba" in variant else
                 {"decoder/body/0/mixer/i_gate/w", "decoder/body/1/mixer/g_z/r", "decoder/body/1/mixer/g_o/b"})
         assert want <= set(names), sorted(want - set(names))
+    want = FAMILY_LEAVES.get(variant, set())
+    assert want <= set(names), sorted(want - set(names))
     for got, want in zip(_bridge.tree_leaves(back), jax.tree.leaves(host(jp))):
         assert _bridge.to_numpy(got).tobytes() == want.tobytes()
     again = params_from_jax(back, tcfg, "cpu")

@@ -42,6 +42,13 @@ RECURRENT = (
     "repro_torch.configs.jamba_v0_1_52b",
 )
 
+# The other families' configs (the A6 slice), which it must reach too.
+FAMILIES = (
+    "repro_torch.configs.gemma2_27b", "repro_torch.configs.nemotron_4_15b",
+    "repro_torch.configs.qwen1_5_110b", "repro_torch.configs.internvl2_1b",
+    "repro_torch.configs.seamless_m4t_medium",
+)
+
 
 def test_port_imports_no_jax_and_no_repro():
     out = subprocess.run(
@@ -53,7 +60,8 @@ def test_port_imports_no_jax_and_no_repro():
     n_modules = int(out.stdout.split()[0])
     assert n_modules >= 15  # every module of the port was imported
     imported = set(out.stdout.splitlines()[1].split())
-    assert set(TRAINING + MOE + RECURRENT) <= imported, sorted(set(TRAINING + MOE + RECURRENT) - imported)
+    walked = set(TRAINING + MOE + RECURRENT + FAMILIES)
+    assert walked <= imported, sorted(walked - imported)
 
 
 def test_chip_smoke_imports_no_jax():

@@ -216,4 +216,4 @@ def test_config_copy_matches_reference():
         assert dataclasses.asdict(j) == dataclasses.asdict(t)
         assert (j.repeats, j.q_dim, j.kv_dim, j.layer_seq()) == (t.repeats, t.q_dim, t.kv_dim, t.layer_seq())
     with pytest.raises(KeyError, match="llama3.2-3b"):
-        tget("gemma2-27b")  # not served yet
+        tget("llama3.2-70b")  # an unknown arch: the error lists the known ones

@@ -2,8 +2,15 @@
 
 Dense (llama3.2-3b smoke), MoE (the granite-moe and deepseek-moe smoke
 configs, and the ``moe`` and ``prefix_dense0`` families of
-``tests/test_models.py``) and recurrent (the xlstm-125m and jamba-v0.1-52b
-smoke configs, also in bf16, and the ``mamba`` and ``xlstm`` families).
+``tests/test_models.py``), recurrent (the xlstm-125m and jamba-v0.1-52b
+smoke configs, also in bf16, and the ``mamba`` and ``xlstm`` families) and
+the other families (the gemma2-27b smoke config, also in bf16, and the
+nemotron-4-15b, qwen1.5-110b, internvl2-1b and seamless-m4t-medium ones,
+and the ``gemma_style``, ``relu2_layernorm_bias``, ``encdec_audio`` and
+``vlm`` families).  A model with a frontend gets the same numpy-made
+``src_embeds`` or ``patch_embeds`` on both sides; a model with a sliding
+window runs past it (36 tokens against gemma2's smoke window of 16), so
+that the window's mask bites.
 A recurrent layer's cache entry is ``{"state": <NamedTuple>}``, compared
 field by field like the attention layers' ``k`` and ``v``.  Weights come from the reference's own init,
 ``Model(cfg).init(key(0))``, carried across with ``params_from_jax``;
@@ -70,9 +77,32 @@ VARIANTS = {
     "mamba": (None, {**FAMILY, "pattern": (("mamba", "mlp"),), "ssm": dict(chunk=4)}),
     "xlstm": (None, {**FAMILY, "d_ff": 0, "n_kv_heads": 4, "pattern": (("mlstm", "none"), ("slstm", "none")),
                      "ssm": dict(chunk=4)}),
+    # The other families' smoke configs (gemma2: a local and a global
+    # layer, window 16, both softcaps, post norms; nemotron: relu_sq and
+    # LayerNorm; qwen: QKV bias; internvl2: 8 patches before the tokens, QKV
+    # bias, GQA; seamless: 2 encoder layers, 1 decoder layer with
+    # cross-attention over 8 frames, LayerNorm, GELU), gemma2 and seamless
+    # also in bf16 (2 and 1 + 2 layers deep, as the other bf16 variants), and test_models.py's
+    # families of the same features.
+    "gemma2-smoke": ("gemma2-27b", {}),
+    "gemma2-smoke-bf16": ("gemma2-27b", {"dtype": "bfloat16"}),
+    "nemotron-smoke": ("nemotron-4-15b", {}),
+    "qwen-smoke": ("qwen1.5-110b", {}),
+    "internvl2-smoke": ("internvl2-1b", {}),
+    "seamless-smoke": ("seamless-m4t-medium", {}),
+    "seamless-smoke-bf16": ("seamless-m4t-medium", {"dtype": "bfloat16"}),
+    "gemma_style": (None, {**FAMILY, "pattern": (("attn_local", "mlp"), ("attn", "mlp")), "sliding_window": 8,
+                           "attn_logit_softcap": 50.0, "final_logit_softcap": 30.0, "post_block_norm": True,
+                           "embed_scale": True, "tied_embeddings": True}),
+    "relu2_layernorm_bias": (None, {**FAMILY, "activation": "relu_sq", "norm": "layernorm", "qkv_bias": True}),
+    "encdec_audio": (None, {**FAMILY, "is_encoder_decoder": True, "n_enc_layers": 2, "frontend": "audio",
+                            "frontend_len": 8}),
+    "vlm": (None, {**FAMILY, "frontend": "vision", "frontend_len": 8}),
 }
 MOE_VARIANTS = ["granite-moe-smoke", "deepseek-moe-smoke", "moe", "prefix_dense0"]
 RECURRENT_VARIANTS = ["xlstm-smoke", "jamba-smoke", "mamba", "xlstm"]
+FAMILY_VARIANTS = ["gemma2-smoke", "nemotron-smoke", "qwen-smoke", "internvl2-smoke", "seamless-smoke",
+                   "gemma_style", "relu2_layernorm_bias", "encdec_audio", "vlm"]
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
 
@@ -131,12 +161,46 @@ def _tokens(seed, b, l, vocab):
     return np.random.default_rng(seed).integers(0, vocab, (b, l), dtype=np.int32)
 
 
+def frontend(cfg, b, seed=3):
+    """The frontend's inputs for ``cfg`` (numpy fp32, N(0, 1) · 0.1, as the
+    reference's serve draws them): ``src_embeds`` for an encoder-decoder
+    model, ``patch_embeds`` for a vision model, else none."""
+    rng = np.random.default_rng(seed)
+    shape = (b, cfg.frontend_len, cfg.d_model)
+    out = {}
+    if cfg.is_encoder_decoder:
+        out["src_embeds"] = (rng.standard_normal(shape) * 0.1).astype(np.float32)
+    if cfg.frontend == "vision":
+        out["patch_embeds"] = (rng.standard_normal(shape) * 0.1).astype(np.float32)
+    return out
+
+
+def jfront(kw):
+    return {k: jnp.asarray(v) for k, v in kw.items()}
+
+
+def tfront(kw):
+    return {k: torch.from_numpy(v) for k, v in kw.items()}
+
+
+def n_prefix(cfg):
+    """The positions a vision model's patches take before the tokens."""
+    return cfg.frontend_len if cfg.frontend == "vision" else 0
+
+
+def seq_len(cfg, short):
+    """``short`` tokens, or past twice the sliding window where there is one."""
+    return 2 * cfg.sliding_window + 4 if cfg.sliding_window else short
+
+
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
 def test_forward_logits(variant):
     jm, jp, tm, tp = setup(variant)
-    toks = _tokens(0, 2, 12, jm.cfg.vocab)
-    want, _ = jax.jit(jm.forward)(jp, jnp.asarray(toks))
-    got = tm.forward(tp, torch.from_numpy(toks))
+    toks = _tokens(0, 2, seq_len(jm.cfg, 12), jm.cfg.vocab)
+    fe = frontend(jm.cfg, 2)
+    want, _ = jax.jit(jm.forward)(jp, jnp.asarray(toks), **jfront(fe))
+    got = tm.forward(tp, torch.from_numpy(toks), **tfront(fe))
+    assert got.shape == (2, n_prefix(jm.cfg) + toks.shape[1], padded_vocab(jm.cfg))
     assert got.dtype == getattr(torch, jm.cfg.dtype)
     _close(got, want, TOL[jm.cfg.dtype])
 
@@ -145,23 +209,31 @@ def test_forward_logits(variant):
 def test_prefill_and_decode_logits_and_cache(variant):
     jm, jp, tm, tp = setup(variant)
     tol = TOL[jm.cfg.dtype]
-    b, m = 2, 16
-    toks = _tokens(1, b, 9, jm.cfg.vocab)
+    # prefill 5 tokens and decode 4; with a sliding window, prefill past it
+    # and decode on past twice it
+    n0 = jm.cfg.sliding_window + 4 if jm.cfg.sliding_window else 5
+    b, n1 = 2, n0 + 4
+    m = n_prefix(jm.cfg) + n1 + 7
+    toks = _tokens(1, b, n1, jm.cfg.vocab)
+    fe = frontend(jm.cfg, b)
     jcache, tcache = jm.init_cache(b, m), tm.init_cache(b, m)
     jprefill, jdecode = jax.jit(jm.prefill), jax.jit(jm.decode_step)
 
-    jl, jcache = jprefill(jp, jnp.asarray(toks[:, :5]), jcache)
-    tl, tcache = tm.prefill(tp, torch.from_numpy(toks[:, :5]), tcache)
+    jl, jcache = jprefill(jp, jnp.asarray(toks[:, :n0]), jcache, **jfront(fe))
+    tl, tcache = tm.prefill(tp, torch.from_numpy(toks[:, :n0]), tcache, **tfront(fe))
     _close(tl, jl, tol)
-    for t in range(5, 9):
+    for t in range(n0, n1):
         jl, jcache = jdecode(jp, jnp.asarray(toks[:, t : t + 1]), jcache)
         tl, tcache = tm.decode_step(tp, torch.from_numpy(toks[:, t : t + 1]), tcache)
         _close(tl, jl, tol)
-    assert int(tcache["len"]) == int(jcache["len"]) == 9
+    assert int(tcache["len"]) == int(jcache["len"]) == n_prefix(jm.cfg) + n1
+    assert sorted(tcache) == sorted(["len", "layers"] + (["enc_out"] if "enc_out" in jcache else []))
+    if "enc_out" in jcache:  # the encoder's output, which every decoder call reads
+        _close(tcache["enc_out"], jcache["enc_out"], tol)
     for (mixer, _), layer, want in zip(jm.cfg.layer_seq(), tcache["layers"],
                                        jax_cache_layers(jcache, jm.cfg), strict=True):
         # {"k", "v"} for attention, {"state": <NamedTuple>} for a recurrent mixer
-        assert sorted(layer) == (["k", "v"] if mixer == "attn" else ["state"]), mixer
+        assert sorted(layer) == (["k", "v"] if mixer in ("attn", "attn_local") else ["state"]), mixer
         got, exp = _bridge.tree_flatten_with_path(layer), jax.tree_util.tree_flatten_with_path(want)[0]
         assert [n for n, _ in got] == ["/".join(str(getattr(k, "key", getattr(k, "name", None))) for k in p)
                                        for p, _ in exp], mixer
@@ -180,21 +252,22 @@ def jax_cache_layers(jcache, cfg):
     return out
 
 
-@pytest.mark.parametrize("variant", ["smoke", "gqa", *MOE_VARIANTS, *RECURRENT_VARIANTS])
+@pytest.mark.parametrize("variant", ["smoke", "gqa", *MOE_VARIANTS, *RECURRENT_VARIANTS, *FAMILY_VARIANTS])
 def test_decode_matches_forward(variant):
     # As tests/test_models.py: the port's decode path ≡ its own forward.
     _, _, tm, tp = setup(variant)
-    b, l = 2, 16
+    b, l = 2, seq_len(tm.cfg, 16)
     toks = torch.from_numpy(_tokens(2, b, l, tm.cfg.vocab))
+    fe = tfront(frontend(tm.cfg, b))
     if tm.cfg.moe.n_experts:
         # Forward (T = 32) and decode (T = 2) route alike only where forward
         # drops nothing: the capacity factor of the smoke configs (1.25)
         # drops here, so give them the families' 4.0 for this check.
         tm = TModel(dataclasses.replace(tm.cfg, moe=dataclasses.replace(tm.cfg.moe, capacity_factor=4.0)),
                     device="cpu")
-    full = tm.forward(tp, toks)
-    cache = tm.init_cache(b, 64)
-    lg, cache = tm.prefill(tp, toks[:, :8], cache)
+    full = tm.forward(tp, toks, **fe)
+    cache = tm.init_cache(b, n_prefix(tm.cfg) + 64)
+    lg, cache = tm.prefill(tp, toks[:, :8], cache, **fe)
     outs = [lg]
     for t in range(8, l):
         lg, cache = tm.decode_step(tp, toks[:, t : t + 1], cache)
@@ -225,7 +298,10 @@ def test_init_matches_reference_layout(variant):
     walk(mine, tp)
     for path, (a, b) in flat_ref.items():
         if "norm" in path:
-            assert not a.float().any(), path  # norm weights start at zero (1 + w)
+            # rmsnorm's weights start at zero (it scales by 1 + w); LayerNorm's
+            # at one, with a zero bias
+            one = tm.cfg.norm == "layernorm" and path.endswith("/w")
+            assert bool((a.float() == float(one)).all()), path
         elif path.endswith("/w") or path == "/embed":
             d_in = a.shape[-1] if path == "/embed" else a.shape[0]
             # the reference's scale, 1/sqrt(d_in), checked by sample std
@@ -240,22 +316,38 @@ def test_bf16_leaves_cross_bit_for_bit():
 
 
 @pytest.mark.parametrize(
-    "kw,item",
+    "kw",
     [
-        ({"pattern": (("attn_local", "mlp"),), "sliding_window": 8}, "A6"),
-        ({"is_encoder_decoder": True, "n_enc_layers": 1}, "A6"),
-        ({"frontend": "vision"}, "A6"),
-        ({"attn_logit_softcap": 50.0}, "A6"),
-        ({"final_logit_softcap": 30.0}, "A6"),
-        ({"post_block_norm": True}, "A6"),
+        # The six A6 cases test_not_dense_raises_naming_roadmap_item used to
+        # refuse: a sliding-window layer, an encoder-decoder model, the vision
+        # frontend, each logit softcap and the post-block norms.  They run now.
+        {"pattern": (("attn_local", "mlp"),), "sliding_window": 8},
+        {"is_encoder_decoder": True, "n_enc_layers": 1},
+        {"frontend": "vision"},
+        {"attn_logit_softcap": 50.0},
+        {"final_logit_softcap": 30.0},
+        {"post_block_norm": True},
     ],
+    ids=["attn_local", "encoder-decoder", "vision", "attn-softcap", "final-softcap", "post-block-norm"],
 )
-def test_not_dense_raises_naming_roadmap_item(kw, item):
+def test_family_config_that_was_refused_now_runs(kw):
     cfg = ModelConfig(
-        name="x", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128, vocab=512, **kw
+        name="x", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128, vocab=512, dtype="float32", **kw
     )
-    with pytest.raises(NotImplementedError, match=item):
-        TModel(cfg, device="cpu")
+    m = TModel(cfg, device="cpu")
+    p = m.init(torch.Generator().manual_seed(0))
+    toks = torch.from_numpy(_tokens(5, 2, 20, cfg.vocab))
+    fe = tfront(frontend(cfg, 2))
+    logits = m.forward(p, toks, **fe)
+    assert logits.shape == (2, n_prefix(cfg) + 20, 512) and bool(logits.isfinite().all())
+    if cfg.final_logit_softcap:
+        assert float(logits.abs().max()) <= cfg.final_logit_softcap
+    cache = m.init_cache(2, n_prefix(cfg) + 24)
+    lg, cache = m.prefill(p, toks[:, :18], cache, **fe)
+    lg, cache = m.decode_step(p, toks[:, 18:19], cache)
+    assert bool(lg.isfinite().all()) and int(cache["len"]) == n_prefix(cfg) + 19
+    with pytest.raises(ValueError, match="unknown mixer"):
+        TModel(dataclasses.replace(cfg, pattern=(("attn_global", "mlp"),)), device="cpu")
 
 
 def test_moe_config_that_was_refused_now_runs():
@@ -309,6 +401,11 @@ ASSIGNMENT = {  # (n_layers, d_model, n_heads, n_kv_heads, d_ff, vocab)
     "granite-moe-1b-a400m": (24, 1024, 16, 8, 512, 49155),
     "deepseek-moe-16b": (28, 2048, 16, 16, 10944, 102400),
     "jamba-v0.1-52b": (32, 4096, 32, 8, 14336, 65536),
+    "seamless-m4t-medium": (12, 1024, 16, 16, 4096, 256206),
+    "gemma2-27b": (46, 4608, 32, 16, 36864, 256000),
+    "nemotron-4-15b": (32, 6144, 48, 8, 24576, 256000),
+    "qwen1.5-110b": (80, 8192, 64, 8, 49152, 152064),
+    "internvl2-1b": (24, 896, 14, 2, 4864, 151655),
 }
 
 
@@ -363,6 +460,16 @@ def test_moe_arch_configs_equal_the_reference(arch):
         j, t = jget(arch, smoke=smoke), tget(arch, smoke=smoke)
         jd, td = dataclasses.asdict(j), dataclasses.asdict(t)
         assert jd == td
+    TModel(tget(arch), device="cpu")  # the full config is accepted (its weights are not made here)
+
+
+@pytest.mark.parametrize("arch", ["gemma2-27b", "nemotron-4-15b", "qwen1.5-110b", "internvl2-1b",
+                                  "seamless-m4t-medium"])
+def test_family_arch_configs_equal_the_reference(arch):
+    for smoke in (False, True):
+        j, t = jget(arch, smoke=smoke), tget(arch, smoke=smoke)
+        assert dataclasses.asdict(j) == dataclasses.asdict(t)
+        assert (j.repeats, j.q_dim, j.kv_dim, j.layer_seq()) == (t.repeats, t.q_dim, t.kv_dim, t.layer_seq())
     TModel(tget(arch), device="cpu")  # the full config is accepted (its weights are not made here)
 
 

@@ -1,7 +1,9 @@
 """The port's serving path against ``repro.launch.serve``'s steps (CPU).
 
 Same config (llama3.2-3b smoke, fp32; the granite-moe and deepseek-moe
-smoke configs; the xlstm-125m and jamba-v0.1-52b smoke configs), the same weights (the reference's
+smoke configs; the xlstm-125m and jamba-v0.1-52b smoke configs; the gemma2,
+nemotron, qwen, internvl2 and seamless smoke configs, with the same
+numpy-made frame or patch embeddings on both sides), the same weights (the reference's
 init, converted) and the same prompts (``jax.random.randint(key(seed+1))``,
 as ``repro.launch.serve.serve`` draws them): the greedy tokens must be
 identical.
@@ -33,12 +35,15 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _reference_tokens(jm, params, prompts, gen):
-    """repro.launch.serve.serve's loop, on the given params and prompts."""
+def _reference_tokens(jm, params, prompts, gen, frontend=None):
+    """repro.launch.serve.serve's loop, on the given params, prompts and
+    frontend inputs; its cache counts a vision model's patches."""
     prefill = jax.jit(make_prefill_step(jm))
     step = jax.jit(make_serve_step(jm))
-    cache = jm.init_cache(prompts.shape[0], prompts.shape[1] + gen)
-    next_tok, cache = prefill(params, {"tokens": prompts}, cache)
+    cfg = jm.cfg
+    max_len = prompts.shape[1] + gen + (cfg.frontend_len if cfg.frontend == "vision" else 0)
+    cache = jm.init_cache(prompts.shape[0], max_len)
+    next_tok, cache = prefill(params, {"tokens": prompts, **(frontend or {})}, cache)
     out = [np.asarray(next_tok)[:, None]]
     tok = next_tok[:, None]
     for _ in range(gen - 1):
@@ -98,6 +103,54 @@ def test_recurrent_greedy_tokens_match_reference(arch):
     tm = TModel(tcfg, device="cpu")
     tp = params_from_jax(jax.tree.map(np.asarray, jp), tcfg, "cpu")
     np.testing.assert_array_equal(generate(tm, tp, to_torch(prompts), 8)["tokens"], want)
+
+
+FAMILY_ARCHS = ["gemma2-27b", "nemotron-4-15b", "qwen1.5-110b", "internvl2-1b", "seamless-m4t-medium"]
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_greedy_tokens_match_reference(arch):
+    # gemma2's 30-token prompt and 8 steps run past its smoke window of 16.
+    jcfg, tcfg = jget(arch, smoke=True), tget(arch, smoke=True)
+    jm = JModel(jcfg)
+    jp = jm.init(jax.random.key(0))
+    prompts = jax.random.randint(jax.random.key(1), (4, 30), 0, jcfg.vocab).astype(jnp.int32)
+    rng = np.random.default_rng(2)
+    shape = (4, jcfg.frontend_len, jcfg.d_model)
+    fe = {}
+    if jcfg.is_encoder_decoder:
+        fe["src_embeds"] = (rng.standard_normal(shape) * 0.1).astype(np.float32)
+    if jcfg.frontend == "vision":
+        fe["patch_embeds"] = (rng.standard_normal(shape) * 0.1).astype(np.float32)
+    want = _reference_tokens(jm, jp, prompts, 8, {k: jnp.asarray(v) for k, v in fe.items()})
+    tm = TModel(tcfg, device="cpu")
+    tp = params_from_jax(jax.tree.map(np.asarray, jp), tcfg, "cpu")
+    got = generate(tm, tp, to_torch(prompts), 8, {k: torch.from_numpy(v) for k, v in fe.items()})
+    np.testing.assert_array_equal(got["tokens"], want)
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_serve_on_cpu(arch):
+    res = serve(arch, smoke=True, batch=2, prompt_len=20, gen=4, device="cpu")
+    assert res["tokens"].shape == (2, 4)
+    assert ((res["tokens"] >= 0) & (res["tokens"] < 512)).all()
+
+
+def test_make_frontend_draws_as_the_reference_serve():
+    # src_embeds from seed + 2, patch_embeds from seed + 3, N(0, 1) * 0.1 of
+    # [batch, frontend_len, d_model] in the config's dtype; none for a text model.
+    from repro_torch.launch.serve import make_frontend
+
+    for arch, name, offset in (("seamless-m4t-medium", "src_embeds", 2), ("internvl2-1b", "patch_embeds", 3)):
+        cfg = tget(arch)
+        fe = make_frontend(cfg, 2, 5, "cpu")
+        assert list(fe) == [name]
+        t = fe[name]
+        assert t.shape == (2, cfg.frontend_len, cfg.d_model) and t.dtype == torch.bfloat16
+        g = torch.Generator().manual_seed(5 + offset)
+        want = (torch.randn(t.shape, generator=g) * 0.1).to(torch.bfloat16)
+        assert torch.equal(t, want)
+    assert make_frontend(tget("llama3.2-3b"), 2, 5, "cpu") == {}
 
 
 def test_cli_serves_the_reference_default_arch_on_cpu(monkeypatch, capsys):

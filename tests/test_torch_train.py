@@ -21,6 +21,9 @@ tokens and labels are made with numpy.  Tolerances:
 * The recurrent archs (mamba, mLSTM, sLSTM) as the dense ones: the port's
   Hillis–Steele scan and the reference's ``associative_scan`` associate
   in other trees, within the same fp32 tolerances.
+* The other families (gemma2, nemotron, qwen, internvl2, seamless) as the
+  dense ones, with the same numpy-made ``src_embeds`` or ``patch_embeds``
+  on both sides; a vision model's CE is over its token positions only.
 """
 
 import dataclasses
@@ -271,7 +274,50 @@ def test_recurrent_bf16_keeps_its_fp32_leaves_and_grads():
     assert any(g.dtype == torch.float32 for g in _bridge.tree_leaves(tg))
 
 
-# The dense, MoE and recurrent families of tests/test_models.py (the others are not ported yet).
+# The other families: the smoke configs of the five archs the A6 slice
+# ports (gemma2 at 36 tokens, past its window of 16), with and without remat
+# (which recomputes the encoder's blocks and the cross-attention's too).
+FAMILY_ARCHS = {"gemma2": "gemma2-27b", "nemotron": "nemotron-4-15b", "qwen": "qwen1.5-110b",
+                "internvl2": "internvl2-1b", "seamless": "seamless-m4t-medium"}
+
+
+def frontend_np(cfg, b, seed=5):
+    """``src_embeds`` / ``patch_embeds`` for ``cfg`` (numpy fp32), or none."""
+    rng = np.random.default_rng(seed)
+    shape = (b, cfg.frontend_len, cfg.d_model)
+    out = {}
+    if cfg.is_encoder_decoder:
+        out["src_embeds"] = (rng.standard_normal(shape) * 0.1).astype(np.float32)
+    if cfg.frontend == "vision":
+        out["patch_embeds"] = (rng.standard_normal(shape) * 0.1).astype(np.float32)
+    return out
+
+
+@pytest.mark.parametrize("remat", [False, True], ids=["", "remat"])
+@pytest.mark.parametrize("family", sorted(FAMILY_ARCHS))
+def test_family_loss_and_grads_match_value_and_grad(family, remat):
+    arch = FAMILY_ARCHS[family]
+    jcfg = dataclasses.replace(jget(arch, smoke=True), remat=remat)
+    tcfg = dataclasses.replace(tget(arch, smoke=True), remat=remat)
+    jm = JModel(jcfg)
+    jp = jm.init(jax.random.key(0))
+    tm, tp = TModel(tcfg, "cpu"), params_from_jax(host(jp), tcfg, "cpu")
+    l = 2 * jcfg.sliding_window + 4 if jcfg.sliding_window else 12
+    batch = {**batch_np(12, 2, l, jcfg.vocab), **frontend_np(jcfg, 2)}
+    (jl, jmet), jg = jax.jit(jax.value_and_grad(jm.loss, has_aux=True))(jp, to_j(batch))
+    tg, tmet = make_grad_step(tm)(tp, to_t(batch))
+    for k in ("loss", "ce"):
+        assert tmet[k].dtype == torch.float32
+        np.testing.assert_allclose(float(tmet[k]), float(jl if k == "loss" else jmet[k]),
+                                   rtol=TOL["float32"], err_msg=k)
+    assert float(tmet["tokens"]) == float(jmet["tokens"]) == 2 * l - 2  # the token region only
+    assert_grads(tg, jg, tm.cfg, "float32")
+    for name, g in _bridge.tree_flatten_with_path(tg):
+        if name.startswith(("enc_layers", "vision_proj")) or "/cross/" in name or "post_norm" in name:
+            assert float(g.abs().max()) > 0.0, name  # the new leaves get a gradient
+
+
+# The families of tests/test_models.py.
 BASE = dict(n_layers=4, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128, vocab=512,
             dtype="float32", remat=False)
 FAMILIES = {
@@ -285,6 +331,12 @@ FAMILIES = {
     "mamba": {**BASE, "pattern": (("mamba", "mlp"),), "ssm": dict(chunk=4)},
     "xlstm": {**BASE, "d_ff": 0, "n_kv_heads": 4, "pattern": (("mlstm", "none"), ("slstm", "none")),
               "ssm": dict(chunk=4)},
+    "gemma_style": {**BASE, "pattern": (("attn_local", "mlp"), ("attn", "mlp")), "sliding_window": 8,
+                    "attn_logit_softcap": 50.0, "final_logit_softcap": 30.0, "post_block_norm": True,
+                    "embed_scale": True, "tied_embeddings": True},
+    "encdec_audio": {**BASE, "is_encoder_decoder": True, "n_enc_layers": 2, "frontend": "audio",
+                     "frontend_len": 8},
+    "vlm": {**BASE, "frontend": "vision", "frontend_len": 8},
 }
 
 
@@ -304,7 +356,7 @@ def test_train_step_finite_grads(family):
     jp = jm.init(jax.random.key(0))
     tm, tp = TModel(tcfg, "cpu"), params_from_jax(host(jp), tcfg, "cpu")
     toks = np.random.default_rng(2).integers(0, tcfg.vocab, (2, 16), dtype=np.int32)
-    batch = {"tokens": toks, "labels": toks}
+    batch = {"tokens": toks, "labels": toks, **frontend_np(tcfg, 2)}
     (jl, _), jg = jax.jit(jax.value_and_grad(jm.loss, has_aux=True))(jp, to_j(batch))
     grads, metrics = make_grad_step(tm)(tp, to_t(batch))
     assert bool(torch.isfinite(metrics["loss"]))
