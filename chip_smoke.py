@@ -31,9 +31,10 @@ Phases, each of which exits nonzero on failure:
    and qwen's 8192.  Flash is held and timed with gemma2's softcap 50 and
    4096-key window (Hq 32, Hkv 16, d 128) at a 4500-row prompt (batch 1),
    at its serving prompt and at decode steps of one query row (kv_len 1 to
-   4352, the window past q_offset), and non-causal at seamless's encoder
-   (1024 frames) and cross-attention (Lq 128 and 1 against them).  Times
-   print in microseconds.
+   4352, the window past q_offset) and at phase 13's training shape (B4,
+   Lq = kv = 512), and non-causal at seamless's encoder (1024 frames) and
+   cross-attention (Lq 128 and 1 against them); rmsnorm is timed at phase
+   13's [2048, 768] and [2048, 4608] too.  Times print in microseconds.
 4. Serve llama3.2-3b at full width (28 layers, d 3072, vocab 128256, bf16,
    random weights from seed 0) through ``repro_torch.launch.serve.serve`` on
    ``cuda``, with every launch count zeroed just before and read just after.
@@ -79,7 +80,8 @@ Phases, each of which exits nonzero on failure:
    and ms a run against the hand placement, and ``optimize(certify=True)``'s
    states and host ms.
 9. Training on the card through ``repro_torch.launch.train.Trainer`` (what
-   ``train`` runs): T-full, llama3.2-3b at full width with 8 of its 28
+   ``train`` runs; it lowers each iteration to the ``inprocess`` backend,
+   whose thread pool fires both pods' steps at once): T-full, llama3.2-3b at full width with 8 of its 28
    layers (bf16, remat), 2 pods with int8 gradsync, global batch 4 x 512,
    one warm iteration and 3 timed.  Loss and grad norm must be finite and
    every param leaf must change; from launch counts of 0, one iteration
@@ -88,9 +90,10 @@ Phases, each of which exits nonzero on failure:
    kernel path is held against the plain path (loss 1e-2 relative, each
    grad leaf 5e-2 by relative L2, every leaf nonzero and finite) and both
    against the plain path in fp32 (the kernel path's whole gradient at most
-   1.25x as far).  Prints ms an iteration, tokens/s, peak memory, each
-   step's ms, device time by kernel family from one profiled iteration and
-   the share of 989 TFLOP/s bf16 the counted operations reach.  Then the
+   1.25x as far).  Prints ms an iteration, tokens/s, peak memory (beside
+   the torch backend's, which ran one step at a time), each step's ms, device
+   ops, busy share and device time by kernel family from one profiled
+   iteration and the share of 989 TFLOP/s bf16 the counted operations reach.  Then the
    smoke config (fp32, head_dim 64) writes a checkpoint through the
    trainer's ``ckpt`` step on the card; it must read back into CPU tensors
    bit for bit, a CPU model's loss at it must match the card's, and a new
@@ -154,6 +157,27 @@ Phases, each of which exits nonzero on failure:
    beside its device time, and decode profiled beside its bound, as in
    phase 11 (the same code serves both).  The child's failure fails the run.
 
+13. Training xlstm-125m and gemma2-27b on the card, in a second child
+   process (``chip_smoke.py --training OUT``) started after phase 12's, so
+   that gemma2 finds the card free: TR-xlstm, xlstm-125m whole (12 layers,
+   d 768, mLSTM and sLSTM) at 2 pods, and TR-gemma2, gemma2-27b at full
+   width with 2 of its 46 layers (one local, one global) at 1 pod (2 do not
+   fit), through ``Trainer`` on ``cuda`` with phase 9's batch, sequence,
+   bf16, remat and int8 gradsync.  The first iteration must give a finite
+   loss and grad norm, change every leaf and keep each leaf's dtype, the
+   fp32 gates (the mLSTM's input and forget gates, the sLSTM's biases) fp32,
+   and, from launch counts of 0, launch rmsnorm 2 x (13 + 12) = 50,
+   flash 0 and decode 0 (xlstm), and 1 x (9 + 8) = 17, 1 x (2 + 2) = 4 and
+   0 (gemma2, flash with its softcap 50 and window 4096 under
+   ``KernelWithPlainGrad``; the window does not bite at 512 tokens).  One
+   fwdbwd is held as in phase 9.  Prints what phase 9 prints, and the
+   sLSTM loop's device ops.  Then each recurrent mixer's backward at full
+   width in fp32 (mamba at jamba's d 4096, the mLSTM's 4 heads of 192, the
+   sLSTM at d 768; one layer each at phase 11b's rows, the loss a fixed
+   random projection of the output): every weight's grad and the input's
+   within fp32 TOL of the CPU's by relative L2, and beyond it with TF32
+   planted.  The child's failure fails the run.
+
 ``python3 chip_smoke.py --rmsnorm-times ROOT`` only times the rmsnorm
 wrapper of the checkout at ROOT (see :func:`rmsnorm_times`), and
 ``--dataplane-times ROOT`` only its untraced data plane (see
@@ -162,8 +186,8 @@ checkouts at A and B in alternating pairs (see :func:`dataplane_compare`).
 
 The line before the last is the kernels' JSON record (each kernel's
 launches on each path under ``launches_by_path``), the data plane's,
-the traced phase's, training's, the MoE phase's, the recurrent phase's and
-the families' numbers above the card's name; the last line is
+the traced phase's, training's, the MoE phase's, the recurrent phase's,
+the families' and phase 13's numbers above the card's name; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 rest of the repository beside it, it exits nonzero and prints no result.
 """
@@ -297,9 +321,9 @@ FAMILY_ARCHS = {"gemma2-27b": None, "nemotron-4-15b": None, "qwen1.5-110b": 8, "
 # is against fp32: the kernel path at most F32_RATIO times as far as the
 # plain bf16 path.
 FAMILY_REL_L2_TOL = MOE_REL_L2_TOL
-# Phase 12 runs in a child process of its own (see run_families), which must
-# end within this many seconds.
-FAMILY_TIMEOUT = 600
+# Phases 12 and 13 run in child processes of their own (see run_child), each
+# of which must end within this many seconds.
+CHILD_TIMEOUT = 600
 # Training granite-moe at full width and depth (24 layers, 1.33 B params):
 # T-full's pods, batch and sequence; one iteration counted from launch counts
 # of 0 (and checked), then MOE_TRAIN_TIMED timed.
@@ -328,6 +352,28 @@ SIGN_AGREE = 0.9
 # pods with int8 compression (the reference trainer's defaults), global
 # batch 4 of 512 tokens; one warm iteration, then TRAIN_TIMED timed.
 TRAIN_LAYERS, TRAIN_PODS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_TIMED = 8, 2, 4, 512, 3
+# Phase 13: training on the card through the inprocess backend.  Each cell:
+# (arch, depth (None: the config's own), pods, timed iterations), at phase
+# 9's batch, sequence, bf16, remat and int8 gradsync; a first iteration
+# counted from launch counts of 0 and checked, then the timed ones, one by
+# steps and one profiled.  TR-xlstm is xlstm-125m whole (0.120 B params);
+# its iteration is host-bound in the sLSTM's loop over time, ~20 s (PERF.md,
+# section 5), so it is timed once.  TR-gemma2 is gemma2-27b at full width with its
+# depth cut from 46 layers to 2, one local and one global (2.31 B params):
+# the functional AdamW update holds old and new params and both fp32 moments
+# at once, about 22 B a param a pod (T-full: 55.06 GB for 1.199 B params at
+# 2 pods), so ~51 GB at 1 pod, and 2 pods (~102 GB) do not fit.
+TRAIN_CELLS = {"TR-xlstm": ("xlstm-125m", None, 2, 1), "TR-gemma2": ("gemma2-27b", 2, 1, 2)}
+# Each TR cell's fwdbwd is held as phase 9's, and in fp32 too (kernel path
+# against plain path, both fp32).  TR-xlstm's bf16 leaves are printed, not
+# held: its bf16 gradient is itself far from its fp32 one, 1.33 by relative
+# L2 on either path on the card (PERF.md, section 6), the sLSTM's exponential
+# gates and the mLSTM's normaliser amplifying each rounding through 512
+# steps and 12 layers, as in the reference (tests/test_torch_train.py::
+# test_xlstm_bf16_grads_drift_from_fp32_as_the_references_do), so two bf16
+# paths differ leaf by leaf by O(1) whatever the kernels do.  Its tight
+# tests are the fp32 kernel path within GRAD_REL_L2_TOL and F32_RATIO.
+BF16_LEAVES_HELD = {"TR-xlstm": False, "TR-gemma2": True}
 # One fwdbwd on the kernel path against the plain path, bf16, same weights
 # and batch: the loss within 1e-2 relative and each grad leaf within 5e-2 by
 # relative L2 (a bf16 rounding is 2^-9 relative; the two paths round the
@@ -336,6 +382,22 @@ TRAIN_LAYERS, TRAIN_PODS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_TIMED = 8, 2, 4, 512, 3
 # the plain path in fp32 on the same (bf16-valued) weights, the kernel
 # path's whole gradient at most F32_RATIO times as far as the plain bf16 path's.
 TRAIN_LOSS_RTOL, GRAD_REL_L2_TOL = 1e-2, 5e-2
+# A gradient leaf under this share of the whole gradient's norm is rounding
+# noise around zero, and is held as a share of the whole (leaf_rel_l2), as the
+# CPU tests floor it (tests/test_torch_train.py::
+# test_recurrent_bf16_keeps_its_fp32_leaves_and_grads): xlstm's sLSTM
+# input-gate bias, whose shift of every i_t cancels in h = o.c/n (from a zero
+# state n stays >= 1), gets ~1e-9 of the whole, and two paths read 1.4-2.3
+# apart there by its own norm, in fp32 too (PERF.md, section 6).
+LEAF_FLOOR = 1e-6
+
+# The leaves that a bf16 model keeps in fp32 (the mLSTM's input and forget
+# gates, the sLSTM's gate biases): AdamW must leave them fp32.
+FP32_LEAF = re.compile(r"/(i_gate|f_gate)/|/g_[ifzo]/b$")
+
+# T-full's and M-train's ms an iteration (a range of two runs) and peak GB
+# on the torch backend, one step at a time (PERF.md, section 5).
+TORCH_BACKEND_TRAIN = {"T-full": (429.83, 432.08, 55.06), "M-train": (796.77, 1016.39, 59.26)}
 
 # NVIDIA data-sheet peaks, dense: device memory bytes/s; bf16 tensor-core,
 # and fp32 CUDA-core, operations/s.
@@ -429,6 +491,17 @@ def host_us(torch, fn, calls: int = 1000, loops: int = 5) -> float:
 
 def rel_l2(got, want) -> float:
     return float((got.float() - want).norm() / want.norm())
+
+
+def leaf_rel_l2(got, want) -> list:
+    """Each gradient leaf's relative L2 distance from ``want``'s.  A leaf whose
+    gradient in ``want`` is under LEAF_FLOOR of the whole gradient's norm is
+    rounding noise around zero, and its distance is taken as a share of the
+    whole gradient's norm instead."""
+    norms = [float(b.float().norm()) for b in want]
+    whole = sum(n * n for n in norms) ** 0.5
+    return [float((a.float() - b.float()).norm()) / (n if n >= LEAF_FLOOR * whole else whole)
+            for a, b, n in zip(got, want, norms)]
 
 
 def close(got, want, tol: float) -> tuple[float, bool]:
@@ -667,7 +740,7 @@ def phase_kernels(torch, bench: Bench) -> dict:
     gkw = dict(causal=True, window=ga["window"], softcap=ga["softcap"])
     for dtype in (torch.bfloat16, torch.float32):
         key = str(dtype)[6:]
-        for b_, lq, m in ((1, *GEMMA_LONG), (B, PROMPT_LEN, PROMPT_LEN + GEN)):
+        for b_, lq, m in ((1, *GEMMA_LONG), (B, PROMPT_LEN, PROMPT_LEN + GEN), (B, TRAIN_SEQ, TRAIN_SEQ)):
             q = randn(b_, lq, ga["hq"], ga["d"], dtype=dtype)
             k = randn(b_, m, ga["hkv"], ga["d"], dtype=dtype)
             v = randn(b_, m, ga["hkv"], ga["d"], dtype=dtype)
@@ -936,6 +1009,19 @@ def phase_kernels(torch, bench: Bench) -> dict:
                 lambda: F.rms_norm(x, (dm,), weight=w1, eps=1e-6),
                 (2 * n * dm + dm) * es, 4 * n * dm, "fp32",
             )
+    # The norms of phase 13's training cells: a forward's rows at xlstm's and
+    # gemma2's widths.
+    for arch, dm in (("xlstm-125m", 768), ("gemma2-27b", 4608)):
+        n = TRAIN_BATCH * TRAIN_SEQ
+        x = randn(n, dm, dtype=bf)
+        w = randn(dm, dtype=bf) * 0.1
+        w1 = 1.0 + w
+        record(
+            "rmsnorm", f"[{n}, {dm}] ({arch} training)",
+            lambda: rmsnorm(x, w), lambda: ref.rmsnorm_ref(x, w),
+            lambda: F.rms_norm(x, (dm,), weight=w1, eps=1e-6),
+            (2 * n * dm + dm) * es, 4 * n * dm, "fp32",
+        )
     for arch, (hq, hkv, d, prefix) in SERVE_ATTN.items():
         lq = prefix + PROMPT_LEN
         q = randn(B, lq, hq, d, dtype=bf).transpose(1, 2)
@@ -975,7 +1061,10 @@ def phase_kernels(torch, bench: Bench) -> dict:
     from torch.nn.attention.flex_attention import flex_attention
 
     w = ga["window"]
-    for b_, lq, m, off in ((1, *GEMMA_LONG, 0), (B, PROMPT_LEN, cache_len, 0), (B, 1, cache_len, cache_len - 1)):
+    # And at TR-gemma2's training shape (phase 13), B4 Lq = kv = 512, where the
+    # window does not bite.
+    for b_, lq, m, off in ((1, *GEMMA_LONG, 0), (B, PROMPT_LEN, cache_len, 0), (B, 1, cache_len, cache_len - 1),
+                           (TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, 0)):
         q = randn(b_, lq, ga["hq"], ga["d"], dtype=bf).transpose(1, 2)
         k = randn(b_, m, ga["hkv"], ga["d"], dtype=bf).transpose(1, 2)
         v = randn(b_, m, ga["hkv"], ga["d"], dtype=bf).transpose(1, 2)
@@ -1633,38 +1722,91 @@ def train_flops(cfg, tokens: int, seq: int) -> float:
 
 def profiled_iteration(torch, tr, it: int, median_ms: float, tag: str, smi: str, sku: str):
     """Iteration ``it`` of trainer ``tr`` under ``torch.profiler``: device ms
-    by kernel family, and the share of bf16 peak that the counted operations
-    (:func:`train_flops`) reach at ``median_ms`` an iteration.  Prints both;
-    returns ``(families, operations, share)``."""
-    from torch.autograd import DeviceType
+    by kernel family, the device ops an iteration and the device's busy share
+    of ``median_ms`` (an unprofiled iteration's wall time), and, for an arch
+    with attention (:func:`train_flops` counts no recurrent mixer), the share
+    of bf16 peak that the counted operations reach at ``median_ms``.  Prints
+    them; returns ``(families, operations, share, device ops, busy share)``."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         tr.iteration(it)
         torch.cuda.synchronize()
     fam: dict = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            f = kernel_family(e.key)
-            fam[f] = fam.get(f, 0.0) + e.device_time_total / 1e3
+    events = device_events(prof)
+    for name, ms in events:
+        f = kernel_family(name)
+        fam[f] = fam.get(f, 0.0) + ms
+    ops = len(events)
     dev_ms = sum(fam.values())
-    flops = train_flops(tr.cfg, TRAIN_BATCH * TRAIN_SEQ, TRAIN_SEQ)
-    share = flops / (median_ms / 1e3) / PEAKS[sku]["bf16"]
     split = ", ".join(f"{k} {v:.2f} ms ({v / dev_ms:.1%})"
                       for k, v in sorted(fam.items(), key=lambda kv: -kv[1])) if dev_ms else "none recorded"
-    print(f"[{tag}] one profiled iteration: device {dev_ms:.2f} ms: {split}  ({smi})")
+    print(f"[{tag}] one profiled iteration: device {dev_ms:.2f} ms over {ops} device ops, busy "
+          f"{dev_ms / median_ms:.1%} of {median_ms:.2f} ms: {split}  ({smi})")
+    if not any(mix in ("attn", "attn_local") for mix, _ in tr.cfg.layer_seq()):
+        return fam, None, None, ops, dev_ms / median_ms
+    flops = train_flops(tr.cfg, TRAIN_BATCH * TRAIN_SEQ, TRAIN_SEQ)
+    share = flops / (median_ms / 1e3) / PEAKS[sku]["bf16"]
     print(f"[{tag}] counted operations {flops:.4e} an iteration: {flops / (median_ms / 1e3) / 1e12:.1f} TFLOP/s, "
           f"{share:.2%} of {PEAKS[sku]['bf16'] / 1e12:.0f} TFLOP/s bf16  ({smi})")
-    return fam, flops, share
+    return fam, flops, share, ops, dev_ms / median_ms
 
 
-def hold_fwdbwd(torch, tag: str, label: str, cfg, params, batch, grad_fn, tape=None) -> dict:
+def device_events(prof) -> list:
+    """``(name, ms)`` of each device event (kernel, copy, set) that ``prof``
+    recorded, read from its Kineto results: ``key_averages()`` first builds a
+    Python object an event, which took minutes for TR-xlstm's 843,000 device
+    ops and their launches (PERF.md, section 6)."""
+    from torch.autograd import DeviceType
+
+    return [(e.name(), e.duration_ns() / 1e6) for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA]
+
+
+def step_times(torch, tr, it: int) -> dict:
+    """The steps of iteration ``it`` of trainer ``tr`` run one at a time, in
+    the plan's order, each ended by a synchronise: ms by step kind (the pods'
+    summed), by host clock."""
+    sync = torch.cuda.synchronize
+    pods = tr.n_pods
+    fns = tr.step_fns()
+    env = {f"iter_{i}": it for i in range(pods)}
+    env.update({f"params_{i}": tr.params for i in range(pods)})
+    env.update({f"opt_{i}": tr.opt_state for i in range(pods)})
+    step_ms = {"shard": 0.0, "fwdbwd": 0.0, "gradsync": 0.0, "update": 0.0}
+    order = ([f"shard_{i}" for i in range(pods)] + [f"fwdbwd_{i}" for i in range(pods)]
+             + ["gradsync"] + [f"update_{i}" for i in range(pods)])
+    for name in order:
+        sync()
+        t0 = time.perf_counter()
+        env.update(fns[name](env))
+        sync()
+        step_ms[name.split("_")[0]] += (time.perf_counter() - t0) * 1e3
+    return step_ms
+
+
+def beside_torch_backend(tag: str, cell: str, iter_ms, peak_gb: float) -> None:
+    """Prints a training cell's ms an iteration and peak memory beside the
+    same cell's under the ``torch`` backend, which fired one step at a time
+    (TORCH_BACKEND_TRAIN)."""
+    lo, hi, gb = TORCH_BACKEND_TRAIN[cell]
+    print(f"[{tag}] {cell} on the inprocess backend (both pods' steps at once): {min(iter_ms):.2f}-"
+          f"{max(iter_ms):.2f} ms an iteration, peak {peak_gb:.2f} GB; on the torch backend, one step at a "
+          f"time (PERF.md, NVIDIA H100 80GB HBM3, 700.00 W): {lo:.2f}-{hi:.2f} ms, {gb:.2f} GB")
+
+
+def hold_fwdbwd(torch, tag: str, label: str, cfg, params, batch, grad_fn, tape=None, bf16_leaves=True,
+                fp32_kernel=False) -> dict:
     """One fwdbwd of ``grad_fn`` on the kernel path against the plain path, and
     both against the plain path in fp32 on the same (bf16-valued) weights:
     the loss within TRAIN_LOSS_RTOL, each grad leaf within GRAD_REL_L2_TOL by
-    relative L2, every kernel-path leaf nonzero and finite, and the kernel
-    path's whole gradient at most F32_RATIO times as far from fp32 as the
-    plain bf16 path's.  With a :class:`RouteTape`, the plain and fp32 runs
+    relative L2 (:func:`leaf_rel_l2`; printed only, without ``bf16_leaves``),
+    every kernel-path leaf nonzero and finite, and the kernel path's whole
+    gradient at most F32_RATIO times as far from fp32 as the plain bf16
+    path's.  With
+    ``fp32_kernel``, the kernel path in fp32 is held against the plain path
+    in fp32 too: the loss within TRAIN_LOSS_RTOL, each leaf within
+    GRAD_REL_L2_TOL.  With a :class:`RouteTape`, the plain and fp32 runs
     route each MoE call as the kernel run did.  Returns the numbers."""
     from repro_torch._bridge import tree_flatten_with_path, tree_leaves, tree_map
     from repro_torch.launch.steps import make_grad_step
@@ -1683,16 +1825,24 @@ def hold_fwdbwd(torch, tag: str, label: str, cfg, params, batch, grad_fn, tape=N
         with replay(rec) as own:
             gp, mp = grad_fn(params, batch)
         m32 = Model(dataclasses.replace(cfg, dtype="float32"), "cuda")
+        params32 = tree_map(lambda t: t.float(), params)
         with replay(rec):
-            g32, m32m = make_grad_step(m32)(tree_map(lambda t: t.float(), params), batch)
+            g32, m32m = make_grad_step(m32)(params32, batch)
     finally:
         set_attn_impl(None)
+    if fp32_kernel:
+        gk32, mk32 = make_grad_step(m32)(params32, batch)
+    del params32
     names = [n for n, _ in tree_flatten_with_path(gk)]
     bad = [n for n, g in zip(names, tree_leaves(gk)) if not (bool(g.isfinite().all()) and float(g.abs().max()) > 0)]
     if bad:
         fail(f"{label}: {len(bad)} grad leaves are zero or non-finite on the kernel path: {bad[:4]}")
     lk, lp, l32 = float(mk["loss"]), float(mp["loss"]), float(m32m["loss"])
-    rels = {n: rel_l2(a, b.float()) for n, a, b in zip(names, tree_leaves(gk), tree_leaves(gp))}
+
+    def leaf_rels(gs, want) -> dict:
+        return dict(zip(names, leaf_rel_l2(tree_leaves(gs), tree_leaves(want))))
+
+    rels = leaf_rels(gk, gp)
     k32 = {n: rel_l2(a, b) for n, a, b in zip(names, tree_leaves(gk), tree_leaves(g32))}
     p32 = {n: rel_l2(a, b) for n, a, b in zip(names, tree_leaves(gp), tree_leaves(g32))}
 
@@ -1721,8 +1871,21 @@ def hold_fwdbwd(torch, tag: str, label: str, cfg, params, batch, grad_fn, tape=N
     for nm in sorted(names, key=rels.get)[-5:]:
         print(f"  {nm}: vs plain {rels[nm]:.3e}; vs fp32 kernel {k32[nm]:.3e}, plain {p32[nm]:.3e}")
     # Written so that a NaN fails each test.
-    if not (abs(lk - lp) / abs(lp) <= TRAIN_LOSS_RTOL and all(r <= GRAD_REL_L2_TOL for r in rels.values())):
+    if not (abs(lk - lp) / abs(lp) <= TRAIN_LOSS_RTOL and (all(r <= GRAD_REL_L2_TOL for r in rels.values())
+                                                         or not bf16_leaves)):
         fail(f"{label}: the kernel path's fwdbwd disagrees with the plain path")
+    if fp32_kernel:
+        lk32 = float(mk32["loss"])
+        r32 = leaf_rels(gk32, g32)
+        w32 = max(r32, key=r32.get)
+        print(f"[{tag}] fwdbwd in fp32, kernel vs plain: loss {lk32:.6f} vs {l32:.6f}, rel "
+              f"{abs(lk32 - l32) / abs(l32):.3e} (tol {TRAIN_LOSS_RTOL:g}); grads max rel L2 {r32[w32]:.3e} at "
+              f"{w32} (tol {GRAD_REL_L2_TOL:g})")
+        for nm in sorted(names, key=r32.get)[-3:]:
+            print(f"  {nm}: fp32 kernel vs plain {r32[nm]:.3e}")
+        out["fp32_kernel_vs_plain"] = {"loss": lk32, "grad_rel_l2_max": r32[w32]}
+        if not (abs(lk32 - l32) / abs(l32) <= TRAIN_LOSS_RTOL and all(r <= GRAD_REL_L2_TOL for r in r32.values())):
+            fail(f"{label}: the kernel path's fwdbwd in fp32 disagrees with the plain path in fp32")
     if not wk <= F32_RATIO * wp:
         fail(f"{label}: the kernel path's gradient is {wk / wp:.3f}x as far from fp32 as the plain path's")
     if tape is not None and not agree >= ROUTE_AGREE:
@@ -1785,29 +1948,16 @@ def phase_train(torch, smi: str, sku: str) -> dict:
     if counts != want:
         fail("the training path did not launch each kernel as expected")
 
-    # The steps of one iteration by host clock, each ended by a synchronise.
     it = 1 + TRAIN_TIMED
-    fns = tr.step_fns()
-    env = {f"iter_{i}": it for i in range(TRAIN_PODS)}
-    env.update({f"params_{i}": tr.params for i in range(TRAIN_PODS)})
-    env.update({f"opt_{i}": tr.opt_state for i in range(TRAIN_PODS)})
-    step_ms = {"shard": 0.0, "fwdbwd": 0.0, "gradsync": 0.0, "update": 0.0}
-    order = ([f"shard_{i}" for i in range(TRAIN_PODS)] + [f"fwdbwd_{i}" for i in range(TRAIN_PODS)]
-             + ["gradsync"] + [f"update_{i}" for i in range(TRAIN_PODS)])
-    for name in order:
-        sync()
-        t0 = time.perf_counter()
-        env.update(fns[name](env))
-        sync()
-        step_ms[name.split("_")[0]] += (time.perf_counter() - t0) * 1e3
-    del env, fns
+    step_ms = step_times(torch, tr, it)
     # One profiled iteration: device time by family.
     med = statistics.median(iter_ms)
     print(f"[9] ms an iteration {fmt_ms(iter_ms)}, median {med:.2f} ms; {tokens / med * 1e3:.1f} tokens/s; "
           f"peak memory {peak_gb:.2f} GB  ({smi})")
+    beside_torch_backend("9", "T-full", iter_ms, peak_gb)
     print(f"[9] steps of one iteration (host clock, synchronised): "
           + ", ".join(f"{k} {v:.2f} ms" for k, v in step_ms.items()) + f"  ({smi})")
-    fam, flops, share = profiled_iteration(torch, tr, it + 1, med, "9", smi, sku)
+    fam, flops, share, ops, busy = profiled_iteration(torch, tr, it + 1, med, "9", smi, sku)
 
     # One fwdbwd: the kernel path against the plain path, and both against fp32
     # (the trainer's moments and error feedback go first, to make room).
@@ -1858,8 +2008,8 @@ def phase_train(torch, smi: str, sku: str) -> dict:
     finally:
         shutil.rmtree(d, ignore_errors=True)
     return {"launches": counts, "iter_ms": iter_ms, "median_ms": med, "tokens_per_s": tokens / med * 1e3,
-            "step_ms": step_ms, "device_ms": fam, "peak_gb": peak_gb, "flops": flops, "bf16_share": share,
-            **held, "params": n_params, "device": smi}
+            "step_ms": step_ms, "device_ms": fam, "device_ops": ops, "busy_share": busy, "peak_gb": peak_gb,
+            "flops": flops, "bf16_share": share, **held, "params": n_params, "device": smi}
 
 
 class RouteTape:
@@ -2017,6 +2167,17 @@ def serve_launches(cfg) -> tuple[dict, dict]:
     n_enc = cfg.n_enc_layers if cross else 0
     return ({"rmsnorm": norms + enc_norms, "flash_attention": len(attn) + n_cross + n_enc, "decode_attention": 0},
             {"rmsnorm": norms, "flash_attention": to_flash + n_cross, "decode_attention": len(attn) - to_flash})
+
+
+def train_launches(cfg, pods: int) -> dict:
+    """The launches of one training iteration of decoder-only ``cfg`` with
+    remat at ``pods`` pods: each pod's forward launches what a prefill does
+    (:func:`serve_launches`), and remat's recompute of every block again, all
+    but the final norm, which lies outside the blocks."""
+    fwd, _ = serve_launches(cfg)
+    final = int(fwd["rmsnorm"] > 0)
+    return {"rmsnorm": pods * (2 * fwd["rmsnorm"] - final), "flash_attention": pods * 2 * fwd["flash_attention"],
+            "decode_attention": 0}
 
 
 def serve_counted(torch, tag: str, cfg, smi: str, n_layers=None) -> tuple[dict, dict, float]:
@@ -2285,7 +2446,8 @@ def moe_train(torch, smi: str, sku: str) -> dict:
     med = statistics.median(iter_ms)
     print(f"[10] {MOE_TRAIN_ARCH} ms an iteration: first (counted) {first_ms:.2f}, then {fmt_ms(iter_ms)}, "
           f"median {med:.2f} ms; {tokens / med * 1e3:.1f} tokens/s; peak memory {peak_gb:.2f} GB  ({smi})")
-    fam, flops, share = profiled_iteration(torch, tr, 1 + MOE_TRAIN_TIMED, med, "10", smi, sku)
+    beside_torch_backend("10", "M-train", iter_ms, peak_gb)
+    fam, flops, share, ops, busy = profiled_iteration(torch, tr, 1 + MOE_TRAIN_TIMED, med, "10", smi, sku)
 
     params, grad_fn = tr.params, tr.grad_fn
     batch = {k: to_torch(v, "cuda") for k, v in tr.dataset.batch(0, 0, TRAIN_PODS).items()}
@@ -2295,9 +2457,9 @@ def moe_train(torch, smi: str, sku: str) -> dict:
     del params
     torch.cuda.empty_cache()
     return {"launches": counts, "first_ms": first_ms, "iter_ms": iter_ms, "median_ms": med,
-            "tokens_per_s": tokens / med * 1e3, "peak_gb": peak_gb, "device_ms": fam, "flops": flops,
-            "bf16_share": share, "metrics": {k: float(v) for k, v in m.items()}, **held,
-            "params": n_params, "device": smi}
+            "tokens_per_s": tokens / med * 1e3, "peak_gb": peak_gb, "device_ms": fam, "device_ops": ops,
+            "busy_share": busy, "flops": flops, "bf16_share": share,
+            "metrics": {k: float(v) for k, v in m.items()}, **held, "params": n_params, "device": smi}
 
 
 def phase_moe(torch, smi: str, sku: str) -> dict:
@@ -2560,40 +2722,243 @@ def phase_families(torch, smi: str, sku: str) -> dict:
             for arch, n in FAMILY_ARCHS.items()}
 
 
-def families_child(torch, out: Path) -> int:
-    """``--families OUT``: phase 12 alone, in a process of its own; writes
-    its result to OUT as JSON."""
+def child(torch, out: Path, phase) -> int:
+    """``--families OUT`` or ``--training OUT``: phase 12 or 13 alone, in a
+    process of its own; writes its result to OUT as JSON."""
     from repro_torch.kernels import ops as kops
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kops.build()  # built already by the parent: found by its hash
-    res = phase_families(torch, nvidia_smi(), sku_of(torch.cuda.get_device_name(0)))
+    res = phase(torch, nvidia_smi(), sku_of(torch.cuda.get_device_name(0)))
     out.write_text(json.dumps(res))
     return 0
 
 
-def run_families() -> dict:
-    """Phase 12 in a child process (``--families OUT``), started right after
-    the build.  In this process, phase 12's profiles of the big models made
-    phase 7's later profiles lose kernel records (a P-full replay showed 2
-    of its 3 rmsnorm kernels); a process of its own keeps them apart, and
-    finds the card free.  The child's lines print as they come; its result
-    is read back from OUT.  Its failure, or a child past FAMILY_TIMEOUT,
-    fails the run."""
-    out = ROOT / "build" / "families.json"
+def run_child(tag: str, flag: str, what: str) -> dict:
+    """Phase ``tag`` in a child process (``chip_smoke.py FLAG OUT``), whose
+    lines print as they come and whose result is read back from OUT.  Its
+    failure, or a child past CHILD_TIMEOUT, fails the run."""
+    out = ROOT / "build" / f"{flag.strip('-')}.json"
     out.unlink(missing_ok=True)
     sys.stdout.flush()
     t0 = time.monotonic()
     try:
-        rc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--families", str(out)], cwd=ROOT,
-                            timeout=FAMILY_TIMEOUT).returncode
+        rc = subprocess.run([sys.executable, str(Path(__file__).resolve()), flag, str(out)], cwd=ROOT,
+                            timeout=CHILD_TIMEOUT).returncode
     except subprocess.TimeoutExpired:
-        fail(f"phase 12 (the families' child process) ran past {FAMILY_TIMEOUT} s")
+        fail(f"phase {tag} ({what}'s child process) ran past {CHILD_TIMEOUT} s")
     if rc != 0:
-        fail(f"phase 12 (the families' child process) exited {rc}")
-    print(f"[12] the families' child process took {time.monotonic() - t0:.1f} s")
+        fail(f"phase {tag} ({what}'s child process) exited {rc}")
+    print(f"[{tag}] {what}'s child process took {time.monotonic() - t0:.1f} s")
     return json.loads(out.read_text())
+
+
+# -- phase 13: training xlstm-125m and gemma2-27b, the mixers' backward -------------
+
+
+def train_cell(torch, cell: str, smi: str, sku: str) -> dict:
+    """Phase 13a/b: one TR cell through ``Trainer`` on cuda (TRAIN_CELLS:
+    arch, depth, pods, timed iterations; phase 9's batch, sequence and int8
+    gradsync, bf16, remat).  The first iteration must give a finite loss and
+    grad norm, change every leaf, keep each leaf's dtype and the fp32 leaves
+    (FP32_LEAF) fp32, and, from launch counts of 0, launch each kernel
+    exactly as :func:`train_launches` counts.  Prints ms an iteration,
+    tokens/s, peak GB, each step's ms, device ops, busy share and device time
+    by family (and, for xlstm, the sLSTM loop's share of the ops); then one
+    fwdbwd is held against the plain path and fp32 (:func:`hold_fwdbwd`)."""
+    from repro_torch._bridge import to_torch, tree_flatten_with_path, tree_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch.train import Trainer
+
+    sync = torch.cuda.synchronize
+    arch, n_layers, pods, timed = TRAIN_CELLS[cell]
+    cfg = get_config(arch)
+    cfg = dataclasses.replace(cfg, n_layers=n_layers) if n_layers else cfg
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, steps=3 + timed, n_pods=pods, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                 ckpt_dir=None, device="cuda")
+    sync()
+    init_s = time.perf_counter() - t0
+    named = tree_flatten_with_path(tr.params)
+    n_params = sum(t.numel() for _, t in named)
+    kinds = sorted({m for m, _ in cfg.layer_seq()})
+    print(f"[13] {cell}: {arch}, {cfg.n_layers} layers ({', '.join(kinds)}) at full width (d {cfg.d_model}, "
+          f"vocab {cfg.vocab}, {cfg.dtype}, remat {cfg.remat}), {n_params / 1e9:.3f} B params, made in "
+          f"{init_s:.1f} s; {pods} pod(s), int8 gradsync, global batch {TRAIN_BATCH} x {TRAIN_SEQ}")
+    fp32 = [n for n, t in named if t.dtype == torch.float32]
+    if fp32 != [n for n, _ in named if FP32_LEAF.search(n)]:
+        fail(f"{cell}: the fp32 leaves at init are not the gate leaves: {fp32[:6]}")
+    p0 = tr.params
+    sync()
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    m = tr.iteration(0)  # the first: counted and checked, its time includes the cold start
+    sync()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    counts = kops.launch_counts()
+    want = train_launches(cfg, pods)
+    print(f"[13] {cell} launches in one iteration {counts} (expected {want})")
+    if counts != want:
+        fail(f"{cell}: the training path did not launch each kernel as expected")
+    if not (np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])):
+        fail(f"{cell}: non-finite loss or grad_norm {m}")
+    after = tree_leaves(tr.params)
+    same = [n for (n, a), b in zip(named, after) if torch.equal(a, b)]
+    moved = [n for (n, a), b in zip(named, after) if a.dtype != b.dtype]
+    if same or moved:
+        fail(f"{cell}: leaves unchanged by an update {same[:4]}, or of another dtype after it {moved[:4]}")
+    print(f"[13] {cell} first iteration {first_ms:.2f} ms: loss {m['loss']:.6f}, grad norm {m['grad_norm']:.4f}; "
+          f"all {len(after)} leaves changed, each kept its dtype; {len(fp32)} fp32 leaves (the gates) still fp32")
+    del p0, named, after
+    iter_ms = []
+    for it in range(1, 1 + timed):
+        sync()
+        t0 = time.perf_counter()
+        m = tr.iteration(it)
+        sync()
+        iter_ms.append((time.perf_counter() - t0) * 1e3)
+        if not (np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])):
+            fail(f"{cell}: non-finite loss or grad_norm at iteration {it}: {m}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    med = statistics.median(iter_ms)
+    print(f"[13] {cell} ms an iteration {fmt_ms(iter_ms)}, median {med:.2f} ms; {tokens / med * 1e3:.1f} tokens/s; "
+          f"peak memory {peak_gb:.2f} GB  ({smi})")
+    it = 1 + timed
+    step_ms = step_times(torch, tr, it)
+    print(f"[13] {cell} steps of one iteration (host clock, synchronised): "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in step_ms.items()) + f"  ({smi})")
+    fam, flops, share, ops, busy = profiled_iteration(torch, tr, it + 1, med, "13", smi, sku)
+    out = {"arch": arch, "layers": cfg.n_layers, "pods": pods, "params": n_params, "launches": counts,
+           "first_ms": first_ms, "iter_ms": iter_ms, "median_ms": med, "tokens_per_s": tokens / med * 1e3,
+           "peak_gb": peak_gb, "step_ms": step_ms, "device_ms": fam, "device_ops": ops, "busy_share": busy,
+           "flops": flops, "bf16_share": share, "fp32_leaves": len(fp32),
+           "metrics": {k: float(v) for k, v in m.items()}, "device": smi}
+    if "slstm" in kinds:
+        out["slstm_loop_ops"] = slstm_loop_ops(torch, cfg, tr.params, pods, ops)
+    params, grad_fn = tr.params, tr.grad_fn
+    batch = {k: to_torch(v, "cuda") for k, v in tr.dataset.batch(0, 0, pods).items()}
+    del tr
+    torch.cuda.empty_cache()
+    out.update(hold_fwdbwd(torch, "13", cell, cfg, params, batch, grad_fn, bf16_leaves=BF16_LEAVES_HELD[cell],
+                           fp32_kernel=True))
+    del params, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def slstm_loop_ops(torch, cfg, params, pods: int, iteration_ops: int) -> int:
+    """The device ops of the sLSTM's loop over time in one iteration: one
+    sLSTM layer's forward and backward at a pod's rows (bf16), profiled and
+    counted, times each pod's sLSTM layers, forward twice (remat)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch._bridge import tree_leaves, tree_map
+    from repro_torch.models import recurrent
+
+    layers = [i for i, (mix, _) in enumerate(cfg.layer_seq()) if mix == "slstm"]
+    p = params["layers"][layers[0]]["mixer"]
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn((TRAIN_BATCH // pods, TRAIN_SEQ, cfg.d_model), generator=g, device="cuda").bfloat16()
+    x.requires_grad_()
+    pl = tree_map(lambda t: t.detach().requires_grad_(), p)
+    leaves = tree_leaves(pl)
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as fwd:
+        y, _ = recurrent.slstm_mix(cfg, pl, x)
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as bwd:
+        torch.autograd.grad(y.float().sum(), [x, *leaves])
+        torch.cuda.synchronize()
+    f, b = len(device_events(fwd)), len(device_events(bwd))
+    loop = pods * len(layers) * (2 * f + b)
+    print(f"[13] the sLSTM loop: one layer at [{TRAIN_BATCH // pods}, {TRAIN_SEQ}, {cfg.d_model}] launches {f} "
+          f"device ops forward ({f / TRAIN_SEQ:.1f} a token) and {b} backward; {pods} pod(s) x {len(layers)} "
+          f"layers x (forward, recompute, backward) = {loop} of the iteration's {iteration_ops} ops "
+          f"({loop / iteration_ops:.1%})")
+    return loop
+
+
+def mixers_backward_card_vs_cpu(torch, smi: str, device: str = "cuda", cfgs=None, plant=None) -> dict:
+    """Phase 13c: each recurrent mixer's backward at full width in fp32 (as
+    phase 11b holds its forward): mamba at jamba's width, the mLSTM and the
+    sLSTM at xlstm's (or ``cfgs``, mixer -> config).  The weights are drawn
+    on the CPU from SEED, the input and a fixed random projection P of the
+    output too; the loss is sum(y * P) over a prefill of BATCH x PROMPT_LEN
+    tokens from no state.  On ``device`` every weight's grad and the input's
+    must be within fp32 TOL of the CPU's by relative L2 (:func:`leaf_rel_l2`),
+    and with ``plant`` (a context manager; on the card, TF32 on) beyond it
+    somewhere, or the check could not see such a fault."""
+    from repro_torch._bridge import tree_flatten_with_path, tree_leaves, tree_map
+    from repro_torch.configs import get_config
+    from repro_torch.models import recurrent
+
+    tol = 2e-5  # TOL of tests/test_kernels.py, fp32
+    if cfgs is None:
+        cfgs = {mixer: dataclasses.replace(get_config(arch), dtype="float32")
+                for mixer, arch in (("mamba", "jamba-v0.1-52b"), ("mlstm", "xlstm-125m"), ("slstm", "xlstm-125m"))}
+    if plant is None:
+        plant = tf32_on
+    out = {}
+    for mixer, cfg in cfgs.items():
+        g = torch.Generator().manual_seed(SEED)
+        p = getattr(recurrent, f"init_{mixer}")(g, cfg, torch.float32)
+        x = torch.randn((BATCH, PROMPT_LEN, cfg.d_model), generator=g)
+        proj = torch.randn((BATCH, PROMPT_LEN, cfg.d_model), generator=g)
+        names = ["x"] + [n for n, _ in tree_flatten_with_path(p)]
+
+        def grads(dev):
+            pd = tree_map(lambda t: t.to(dev).requires_grad_(), p)
+            xd = x.to(dev).requires_grad_()
+            y, _ = getattr(recurrent, f"{mixer}_mix")(cfg, pd, xd)
+            return [t.cpu() for t in torch.autograd.grad((y * proj.to(dev)).sum(), [xd, *tree_leaves(pd)])]
+
+        want = grads("cpu")
+        got = grads(device)
+        with plant():
+            planted = grads(device)
+        rels = dict(zip(names, leaf_rel_l2(got, want)))
+        fault = max(leaf_rel_l2(planted, want))
+        worst = max(rels, key=rels.get)
+        shape = {"mamba": f"d {cfg.d_model}, d_inner {recurrent.d_inner(cfg)}, d_state {cfg.ssm.d_state}",
+                 "mlstm": f"{cfg.n_heads} heads of {cfg.head_dim}", "slstm": f"d {cfg.d_model}"}[mixer]
+        print(f"[13] {mixer} ({shape}) backward, fp32 on {device} vs the CPU, prefill {BATCH} x {PROMPT_LEN}: "
+              f"{len(names)} grads (the input's and every weight's), rel L2 at most {rels[worst]:.3e} ({worst}; "
+              f"tol {tol:g}); planted fault {fault:.3e}  ({smi})")
+        if not (all(r <= tol for r in rels.values()) and fault > tol):
+            fail(f"{mixer}'s backward on {device} disagrees with the CPU, or cannot tell the planted fault: "
+                 f"{rels}, planted {fault:.3e}")
+        out[mixer] = {"rel_l2": rels, "planted_rel_l2": fault}
+    return out
+
+
+@contextlib.contextmanager
+def tf32_on():
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def phase_training(torch, smi: str, sku: str) -> dict:
+    """Phase 13: each recurrent mixer's backward against the CPU, then train
+    TR-gemma2 and TR-xlstm (each trainer freed before the next is made)."""
+    t0 = time.monotonic()
+    out = {"backward_card_vs_cpu": mixers_backward_card_vs_cpu(torch, smi)}
+    print(f"[13] the mixers' backward took {time.monotonic() - t0:.1f} s")
+    for cell in sorted(TRAIN_CELLS):
+        t0 = time.monotonic()
+        out[cell] = train_cell(torch, cell, smi, sku)
+        print(f"[13] {cell} took {time.monotonic() - t0:.1f} s")
+    return out
 
 
 def fmt_ms(xs) -> str:
@@ -2713,6 +3078,8 @@ def main() -> int:
     ap.add_argument("--pairs", type=int, default=10, help="pairs for --dataplane-compare")
     ap.add_argument("--families", metavar="OUT", type=Path,
                     help="only phase 12, the other families, its result to OUT (the child process of a whole run)")
+    ap.add_argument("--training", metavar="OUT", type=Path,
+                    help="only phase 13, training xlstm-125m and gemma2-27b, its result to OUT (a child process)")
     opts = ap.parse_args()
     # One process makes and frees models of up to 34 GB and trains two more:
     # with fixed segments the freed memory splinters, and phase 11's jamba
@@ -2746,7 +3113,9 @@ def main() -> int:
         return dataplane_times(torch, root)
     sys.path.insert(0, str(ROOT / "src"))
     if opts.families is not None:
-        return families_child(torch, opts.families)
+        return child(torch, opts.families, phase_families)
+    if opts.training is not None:
+        return child(torch, opts.training, phase_training)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -2784,7 +3153,16 @@ def main() -> int:
             fail(f"rmsnorm spills registers: {spilled}")
 
     # -- 12. the other families, in a child process, before this one holds memory --------
-    families = run_families()
+    # In this process, phase 12's profiles of the big models made phase 7's
+    # later profiles lose kernel records (a P-full replay showed 2 of its 3
+    # rmsnorm kernels); a process of its own keeps them apart, and finds the
+    # card free.
+    families = run_child("12", "--families", "the families")
+
+    # -- 13. training xlstm-125m and gemma2-27b, in a child process, on a free card ---------
+    # TR-gemma2 peaks at 68.29 GB (PERF.md, section 5), and from phase 10 on this
+    # process holds 59-62 GiB reserved (PERF.md, section 7).
+    training = run_child("13", "--training", "training")
 
     # -- 3. kernels vs plain -----------------------------------------------------
     bench = Bench(torch, sku)
@@ -2913,6 +3291,7 @@ def main() -> int:
                    for arch in REC_ARCHS},
                 **{f"serve {arch}": {path: c[k] for path, c in families[arch]["launches"].items()}
                    for arch in FAMILY_ARCHS},
+                **{f"train {cell}": training[cell]["launches"][k] for cell in TRAIN_CELLS},
             },
         })
     print(json.dumps({"dataplane": dataplane}))
@@ -2921,6 +3300,7 @@ def main() -> int:
     print(json.dumps({"moe": moe}))
     print(json.dumps({"recurrent": recurrent}))
     print(json.dumps({"families": families}))
+    print(json.dumps({"training": training}))
     print(f"kernels: {', '.join(r['name'] for r in record)}; {time.monotonic() - t_start:.1f} s in all")
     print(smi)
     print(json.dumps({"kernels": record}))

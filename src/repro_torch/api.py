@@ -21,14 +21,16 @@ End to end::
         .run()
     )
 
-The one backend is ``torch``; it runs on ``cuda`` unless lowered with
-``platform="cpu"``.  As in the reference, every stage is a value: a
+Two backends resolve by name through :mod:`repro_torch.backends`:
+``torch``, which places each location on a device and runs on ``cuda``
+unless lowered with ``platform="cpu"``, and ``inprocess``, the reference's
+thread-pool runtime with retry, speculation and checkpoint/restore, which
+places nothing.  As in the reference, every stage is a value: a
 :class:`Plan` can be optimised twice with different rule sets, certified
 against the original system with the weak-barbed-bisimulation checker of
 :mod:`repro_torch.core.bisim` (Thm. 1), scheduled against a network cost
 model (:mod:`repro_torch.sched`), lowered with ``trace=True`` and aligned
-against its predicted timeline (:meth:`Plan.profile`).  Checkpoint/restore
-is not ported (the reference's ``jax`` backend has none either).
+against its predicted timeline (:meth:`Plan.profile`).
 """
 
 from __future__ import annotations
@@ -788,8 +790,9 @@ class Executable:
     One Executable owns one :class:`BackendProgram`.  Whether *whole runs*
     may overlap is the backend's call
     (:meth:`~repro_torch.backends.base.BackendProgram.concurrent_batches`).
-    The ``torch`` backend's runs share program-level state (its captured
-    CUDA graphs and their static buffers), so it keeps the exclusive guard:
+    Both backends' runs share program-level state (the ``torch`` backend's
+    captured CUDA graphs and their static buffers, the ``inprocess``
+    backend's snapshot slots), so each keeps the exclusive guard:
     a second overlapping run raises :class:`ConcurrentRunError` (compile
     another Executable from the same :class:`Lowered` to run concurrently).
 

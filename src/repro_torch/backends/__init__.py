@@ -1,8 +1,10 @@
 """The port's backend registry.
 
 ``Plan.lower(backend="...")`` resolves names through this registry.  It is
-the port's own and holds one backend, ``torch``; it never touches
-``repro.backends``, whose registry the reference's sweeps enumerate.
+the port's own and holds two backends, ``inprocess`` (the reference
+trainer's, checkpointable) and ``torch`` (places each location on a CUDA
+device, fuses and traces); it never touches ``repro.backends``, whose
+registry the reference's sweeps enumerate.
 Factories are zero-argument callables returning a :class:`Backend`; they are
 invoked lazily so registering a backend never imports its dependencies.
 """
@@ -43,6 +45,7 @@ def _builtin(module: str) -> BackendFactory:
 
 
 _REGISTRY: dict[str, BackendFactory] = {
+    "inprocess": _builtin("repro_torch.backends.inprocess"),
     "torch": _builtin("repro_torch.backends.torch_backend"),
 }
 

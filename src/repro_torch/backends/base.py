@@ -4,9 +4,11 @@ A copy of ``repro/backends/base.py``.  A backend turns a lowered
 :class:`~repro_torch.exec.program.ExecProgram` — the per-location executable
 program IR of :mod:`repro_torch.exec` — plus a step registry into a
 :class:`BackendProgram`, the backend-specific compiled artifact behind
-:class:`repro_torch.api.Executable`.  The port ships one backend, ``torch``
-(:mod:`repro_torch.backends.torch_backend`), an interpreter over that IR
-that places each location on a CUDA device.
+:class:`repro_torch.api.Executable`.  The port ships two interpreters over that
+IR: ``torch`` (:mod:`repro_torch.backends.torch_backend`), which places
+each location on a CUDA device, and ``inprocess``
+(:mod:`repro_torch.backends.inprocess`), the reference's checkpointable
+thread-pool runtime.
 """
 
 from __future__ import annotations

@@ -20,6 +20,7 @@ kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -31,6 +32,16 @@ MAX_GROUP = 8  # query heads per KV head (csrc kMaxG)
 TILE = 64  # keys a tile of the kernel (csrc kTileK); a split is a multiple of it
 
 launches = 0  # kernel launches since the last reset (see ops.reset_launch_counts)
+_launch_lock = threading.Lock()
+
+
+def _count_launch() -> None:
+    """Add one to :data:`launches`, under a lock: two threads may launch at once
+    (the ``inprocess`` backend fires the trainer's pods on a thread pool)."""
+    global launches
+    with _launch_lock:
+        launches += 1
+
 
 _fn = None
 # The merge's counters, zero between calls: one set per (device, stream).
@@ -75,7 +86,6 @@ def decode_attention(
     kv_len,  # valid rows: int or device int32 scalar
 ) -> torch.Tensor:
     """Returns ``[B, Hq, d]`` laid out like ``q`` (``empty_like``)."""
-    global launches
     if q.device.type == "cpu":
         return ref.decode_attention_ref(q, k, v, kv_len)
     if q.device.type != "cuda":
@@ -119,5 +129,5 @@ def decode_attention(
             _build.DTYPE_CODE[q.dtype], stream,
         )
     _build.check("decode_attention", rc)
-    launches += 1
+    _count_launch()
     return o

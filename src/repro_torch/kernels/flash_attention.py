@@ -17,6 +17,7 @@ strides must be multiples of 16 bytes.  A CPU tensor gets the plain version of
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -25,6 +26,16 @@ from . import _build, ref
 HEAD_DIMS = (64, 128, 192)
 
 launches = 0  # kernel launches since the last reset (see ops.reset_launch_counts)
+_launch_lock = threading.Lock()
+
+
+def _count_launch() -> None:
+    """Add one to :data:`launches`, under a lock: two threads may launch at once
+    (the ``inprocess`` backend fires the trainer's pods on a thread pool)."""
+    global launches
+    with _launch_lock:
+        launches += 1
+
 
 _fn = None
 
@@ -61,7 +72,6 @@ def flash_attention(
     q_offset=0,  # absolute position of query row 0: int or device int32 scalar
 ) -> torch.Tensor:
     """Returns ``[B, Hq, Lq, d]`` laid out like ``q`` (``empty_like``)."""
-    global launches
     if q.device.type == "cpu":
         return ref.flash_attention_ref(
             q, k, v, causal=causal, window=window, softcap=softcap,
@@ -99,5 +109,5 @@ def flash_attention(
             _build.DTYPE_CODE[q.dtype], _build.stream_of(q),
         )
     _build.check("flash_attention", rc)
-    launches += 1
+    _count_launch()
     return o

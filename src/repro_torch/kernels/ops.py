@@ -4,9 +4,10 @@ The model keeps activations as ``[B, L, H, d]`` and its cache as
 ``[B, M, Hkv, d]``.  Where ``repro.kernels.ops`` transposes q/k/v (and the
 whole cache, every decode step) into the kernels' ``[B, H, L, d]``, these
 wrappers pass transposed *views*: the kernels take strides, so nothing is
-copied.  Each kernel module counts its own launches in a plain integer;
-:func:`launch_counts` reads the three and :func:`reset_launch_counts` zeroes
-them.
+copied.  Each kernel module counts its own launches in an integer that
+it adds to under a lock, as the ``inprocess`` backend fires the trainer's
+pods on threads that launch at once; :func:`launch_counts` reads the three
+and :func:`reset_launch_counts` zeroes them.
 
 Gradients.  No kernel has a backward kernel, as none of the TPU kernels has
 one (the reference defines no ``custom_vjp``).  When grad mode is on and an
@@ -107,4 +108,5 @@ def launch_counts() -> dict[str, int]:
 
 def reset_launch_counts() -> None:
     for mod in _MODULES.values():
-        mod.launches = 0
+        with mod._launch_lock:
+            mod.launches = 0

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import NamedTuple
 
 import torch
@@ -22,6 +23,16 @@ MAX_THREADS = 256  # threads of a block (csrc kMaxThreads)
 MAX_D = VALUES * MAX_THREADS
 
 launches = 0  # kernel launches since the last reset (see ops.reset_launch_counts)
+_launch_lock = threading.Lock()
+
+
+def _count_launch() -> None:
+    """Add one to :data:`launches`, under a lock: two threads may launch at once
+    (the ``inprocess`` backend fires the trainer's pods on a thread pool)."""
+    global launches
+    with _launch_lock:
+        launches += 1
+
 
 _fns: dict = {}
 
@@ -130,7 +141,6 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6, out=None) ->
     ``out``, if given, is written and returned: x's shape and dtype, unit
     stride along d, any row stride, not overlapping x.
     """
-    global launches
     if x.device.type == "cpu":
         y = ref.rmsnorm_ref(x, w, eps=eps)
         return y if out is None else out.copy_(y)
@@ -144,5 +154,5 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6, out=None) ->
         with torch.cuda.device(index):
             rc = _kernel()(*args)
     _build.check("rmsnorm", rc)
-    launches += 1
+    _count_launch()
     return y

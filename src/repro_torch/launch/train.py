@@ -4,12 +4,12 @@ The port of ``repro.launch.train``.  Each training iteration is a
 distributed workflow instance (per-pod ``shard_i`` → ``fwdbwd_i`` →
 synchronised ``gradsync`` → per-pod ``update_i`` → ``ckpt``), translated by
 the paper's encoding into per-pod SWIRL traces
-(``TrainPipelineTranslator``), optimised with ``("R1R2", "R3")`` and run by
-the port's ``torch`` backend under ``FaultPolicy(max_retries=2)``: the
-reference lowers to ``inprocess`` with ``RetryPolicy(max_retries=2)``,
-which the port does not have yet.  Every location is pinned to the model's
-device; param and optimizer trees are dicts and NamedTuples, which the
-backend's store passes by reference, so no iteration copies them.
+(``TrainPipelineTranslator``), optimised with ``("R1R2", "R3")`` and run,
+as the reference runs it, by the ``inprocess`` backend with
+``RetryPolicy(max_retries=2)``: its thread pool fires the pods' ready steps
+at once.  That backend places nothing: every step keeps its tensors on the
+model's device, and the param and optimizer trees reach the steps as the
+very objects given, so no iteration copies them.
 
 Cross-pod gradients go through int8 error-feedback compression
 (:mod:`repro_torch.optim.compress`) unless ``compress_grads=False``.  On
@@ -41,11 +41,11 @@ from repro_torch.ckpt import async_save, latest_step, load_checkpoint
 from repro_torch.configs import get_config
 from repro_torch.core.translate import TrainPipelineTranslator
 from repro_torch.data import SyntheticLM
-from repro_torch.exec.policy import FaultPolicy
 from repro_torch.models import Model, ModelConfig, params_from_jax, params_to_jax
 from repro_torch.optim import AdamWConfig
 from repro_torch.optim import adamw as adamw_mod
 from repro_torch.optim.compress import allreduce_mean, compress, decompress
+from repro_torch.workflow.fault import RetryPolicy
 
 from .steps import make_grad_step
 
@@ -180,7 +180,7 @@ class Trainer:
             f"{plan.system.comm_count()} comms (Def.15 removed "
             f"{opt_stats.removed}, R3 removed {r3_stats.removed})"
         )
-        self.lowered = plan.lower("torch", devices=[dev], policy=FaultPolicy(max_retries=2))
+        self.lowered = plan.lower("inprocess", retry=RetryPolicy(max_retries=2))
 
         # Resume or init per-pod replicas (identical params across pods).
         self.params = self.model.init(torch.Generator(device=dev).manual_seed(seed))

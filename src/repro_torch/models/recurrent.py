@@ -229,7 +229,11 @@ def _mlstm_chunk(
     m_t = m.permute(0, 2, 1)
     w_log = cum_t[:, :, :, None] + g_s[:, :, None, :] - m_t[:, :, :, None]
     causal = torch.tril(torch.ones((c, c), dtype=torch.bool, device=q.device))
-    w = torch.where(causal[None, None], torch.exp(w_log), 0.0)
+    # Masked before the exp, not after it as the reference does: the same
+    # forward values, but above the diagonal w_log grows with the distance
+    # (cum falls by ~0.7 a token), exp overflows to inf past ~130 tokens, and
+    # the backward's 0 · inf made every grad below this layer NaN.
+    w = torch.exp(torch.where(causal[None, None], w_log, -math.inf))
     scores = logits * w  # [B, H, t, s]
 
     num_intra = torch.einsum("bhts,bshd->bthd", scores, v)  # [B, c, H, dh]

@@ -9,7 +9,9 @@ back to the param dtype.  The schedule and the bias corrections
 ``update`` is functional: it returns new trees and leaves its arguments as
 they were, so a step that a fault policy retries after a partial failure is
 applied once.  Each leaf is computed once (the reference maps its update
-three times and leaves the duplicate arithmetic to XLA's CSE).
+three times and leaves the duplicate arithmetic to XLA's CSE), and its
+intermediates are made in place in the update's own tensors, so that eager
+PyTorch holds few of them at once where XLA fuses them away.
 """
 
 from __future__ import annotations
@@ -90,13 +92,20 @@ def update(
     b2c = 1.0 - _f32(cfg.b2, dev) ** step.to(torch.float32)
 
     def upd(p, g, m, v):
+        # The reference's arithmetic, op for op, with each intermediate made
+        # in place in a tensor that this function allocated (never in an
+        # argument: ``float()`` of an fp32 leaf is the leaf itself), so that
+        # a leaf holds at most five fp32 temporaries of its size at once
+        # (gemma2's 1.18 B-row embedding: 4.7 GB each).
         g = g.float() * scale
-        m = cfg.b1 * m + (1 - cfg.b1) * g
-        v = cfg.b2 * v + (1 - cfg.b2) * g * g
-        mh = m / b1c
-        vh = v / b2c
-        delta = mh / (torch.sqrt(vh) + cfg.eps) + cfg.weight_decay * p.float()
-        return (p.float() - lr * delta).to(p.dtype), m, v
+        m = torch.mul(m, cfg.b1).add_(torch.mul(g, 1 - cfg.b1))
+        v = torch.mul(v, cfg.b2).add_(torch.mul(g, 1 - cfg.b2).mul_(g))
+        del g
+        den = torch.div(v, b2c).sqrt_().add_(cfg.eps)
+        delta = torch.div(m, b1c).div_(den)
+        del den
+        delta.add_(torch.mul(p.float(), cfg.weight_decay)).mul_(lr)
+        return torch.sub(p.float(), delta).to(p.dtype), m, v
 
     new = [
         upd(p, g, m, v)

@@ -49,6 +49,10 @@ FAMILIES = (
     "repro_torch.configs.seamless_m4t_medium",
 )
 
+# The inprocess backend and the modules it runs on (the training slice on the
+# card lowers to it), which it must reach too.
+INPROCESS = ("repro_torch.workflow.runtime", "repro_torch.exec.central", "repro_torch.backends.inprocess")
+
 
 def test_port_imports_no_jax_and_no_repro():
     out = subprocess.run(
@@ -60,7 +64,7 @@ def test_port_imports_no_jax_and_no_repro():
     n_modules = int(out.stdout.split()[0])
     assert n_modules >= 15  # every module of the port was imported
     imported = set(out.stdout.splitlines()[1].split())
-    walked = set(TRAINING + MOE + RECURRENT + FAMILIES)
+    walked = set(TRAINING + MOE + RECURRENT + FAMILIES + INPROCESS)
     assert walked <= imported, sorted(walked - imported)
 
 

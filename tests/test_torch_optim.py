@@ -79,10 +79,12 @@ def test_adamw_update_matches_reference_step_by_step(clip):
     for step in range(10):
         g = np_tree(100 + step, scale=0.5)
         jp, js, jm = jup(to_j(g), js, jp)
-        before = [t.clone() for t in _bridge.tree_leaves((tp, ts))]
-        tp_new, ts_new, tm = tadamw.update(tcfg, to_t(g), ts, tp)
-        # functional: the arguments are left as they were
-        assert all(torch.equal(a, b) for a, b in zip(before, _bridge.tree_leaves((tp, ts))))
+        tg = to_t(g)
+        before = [t.clone() for t in _bridge.tree_leaves((tp, ts, tg))]
+        tp_new, ts_new, tm = tadamw.update(tcfg, tg, ts, tp)
+        # functional: the arguments are left as they were, the fp32 grads too
+        # (the pods' updates share one tree of mean grads)
+        assert all(torch.equal(a, b) for a, b in zip(before, _bridge.tree_leaves((tp, ts, tg))))
         tp, ts = tp_new, ts_new
         assert int(ts.step) == int(js.step) == step + 1
         assert ts.step.dtype == torch.int32

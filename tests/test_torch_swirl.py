@@ -226,16 +226,18 @@ def test_unported_stages_raise_by_name():
     traced = plan.lower("torch", trace=True, platform="cpu").compile(fns).run()
     report = plan.profile(traced)
     assert report.backend == "torch" and report.drifts
-    for name in ("jax", "inprocess", "nope"):
-        with pytest.raises(UnknownBackendError, match="available: \\('torch',\\)"):
+    for name in ("jax", "threaded", "multiprocess", "nope"):
+        with pytest.raises(UnknownBackendError, match="available: \\('inprocess', 'torch'\\)"):
             plan.lower(name)
 
 
 def test_registry_is_the_ports_own():
-    assert available_backends() == ("torch",)
+    assert available_backends() == ("inprocess", "torch")
     _plan().lower("torch", platform="cpu")
+    _plan().lower("inprocess")
     assert "torch" not in jbackends._REGISTRY
     assert "torch" not in jbackends.available_backends()
+    assert jbackends.get_backend("inprocess").__module__ == "repro.backends.inprocess"
 
 
 def test_default_platform_is_cuda_and_raises_without_it(monkeypatch):

@@ -26,15 +26,18 @@ tokens and labels are made with numpy.  Tolerances:
   on both sides; a vision model's CE is over its token positions only.
 """
 
+import contextlib
 import dataclasses
 import shutil
 import sys
+import threading
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_families import _chip_smoke
 
 from repro.configs import get_config as jget
 from repro.launch.train import train as jtrain
@@ -60,6 +63,7 @@ from repro_torch.models import SSMCfg as TSSM
 from repro_torch.models import layers as tlayers
 from repro_torch.models import params_from_jax, params_to_jax
 from repro_torch.optim import AdamWConfig
+from repro_torch.workflow.fault import RetryPolicy
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 ARCH = "llama3.2-3b"
@@ -250,6 +254,76 @@ def test_recurrent_loss_and_grads_match_value_and_grad(variant, remat):
     for name, g in _bridge.tree_flatten_with_path(tg):
         if "/mixer/" in name and not name.endswith(("conv_b", "/b")):
             assert float(g.abs().max()) > 0.0, name  # the mixers' weights get a gradient
+
+
+def test_mlstm_grads_stay_finite_in_a_long_chunk():
+    """Queue C of ROADMAP.md: the reference's mLSTM exponentiates its
+    above-diagonal weights before masking them, and past ~130 tokens in one
+    chunk they overflow and its grads turn NaN (xlstm-125m's chunk is 512);
+    the port masks first.  The reference's grads at 256 tokens in one chunk
+    are not finite (asserted, to record it); at that chunk the port's must
+    be finite and equal the reference's at chunk 16, where nothing overflows
+    (the chunked form is exact), within fp32 TOL by relative L2 (element-wise
+    the mLSTM is ill-conditioned where its normaliser is small: chunkings
+    that stabilise at other log-maxes move single elements by ~1e-4)."""
+    from repro.models import recurrent as jrec
+    from repro_torch.models import recurrent as trec
+
+    jcfg = dataclasses.replace(jget("xlstm-125m", smoke=True), ssm=JSSM(chunk=16))
+    tcfg = dataclasses.replace(tget("xlstm-125m", smoke=True), ssm=TSSM(chunk=256))
+    jp = jrec.init_mlstm(jax.random.key(3), jcfg, jnp.float32)
+    x = np.random.default_rng(11).standard_normal((2, 256, jcfg.d_model)).astype(np.float32)
+    proj = np.random.default_rng(12).standard_normal(x.shape).astype(np.float32)
+
+    def jloss(p, x):
+        return jnp.sum(jrec.mlstm_mix(jcfg, p, x)[0] * proj)
+
+    jgp, jgx = jax.grad(jloss, argnums=(0, 1))(jp, jnp.asarray(x))
+    # The divergence this test records: the reference in one chunk of 256.
+    long = dataclasses.replace(jcfg, ssm=JSSM(chunk=256))
+    jlong = jax.grad(lambda p, x: jnp.sum(jrec.mlstm_mix(long, p, x)[0] * proj))(jp, jnp.asarray(x))
+    assert not all(bool(jnp.isfinite(g).all()) for g in jax.tree.leaves(jlong))
+    tp = _bridge.tree_map(lambda a: torch.tensor(np.asarray(a)).requires_grad_(), jp)
+    tx = torch.from_numpy(x).requires_grad_()
+    y, _ = trec.mlstm_mix(tcfg, tp, tx)
+    tg = torch.autograd.grad((y * torch.from_numpy(proj)).sum(), [tx, *_bridge.tree_leaves(tp)])
+    want = [jgx, *jax.tree.leaves(jgp)]
+    assert len(tg) == len(want) == 7
+    for a, b in zip(tg, want):
+        b = np.asarray(b)
+        assert bool(a.isfinite().all())
+        assert np.linalg.norm(a.numpy() - b) <= TOL["float32"] * np.linalg.norm(b)
+
+
+def test_xlstm_bf16_grads_drift_from_fp32_as_the_references_do():
+    """xlstm-125m at full width (4 of its 12 layers, 2 x 128 tokens), the bf16
+    gradient against the fp32 gradient of the same weights, on each side:
+    the exponential gates and the mLSTM's normaliser amplify bf16 rounding
+    through the steps and layers, so the reference's own bf16 gradient is
+    more than 0.1 from its fp32 one by relative L2, and the port's drifts as
+    far within a factor of 2 (the drift is chaotic: two sides that round
+    apart land apart).  On the card, at 12 layers and 2 x 512 tokens, either
+    path's is 1.36-1.42, so ``chip_smoke.py`` phase 13 prints TR-xlstm's bf16
+    kernel-vs-plain leaves and holds them in fp32.  The reference runs its mLSTM at chunk 16, where its
+    gradient does not overflow (queue C)."""
+    jcfg = dataclasses.replace(jget("xlstm-125m"), n_layers=4, ssm=JSSM(chunk=16))
+    tcfg = dataclasses.replace(tget("xlstm-125m"), n_layers=4)
+    jp = JModel(jcfg).init(jax.random.key(0))
+    jp32 = jax.tree.map(lambda a: a.astype(jnp.float32), jp)
+    batch = batch_np(7, 2, 128, jcfg.vocab)
+
+    def whole(xs, ys):
+        return float(np.sqrt(sum(np.sum((x - y) ** 2) for x, y in zip(xs, ys)) / sum(np.sum(y ** 2) for y in ys)))
+
+    def grads(dtype, p):
+        jc, tc = dataclasses.replace(jcfg, dtype=dtype), dataclasses.replace(tcfg, dtype=dtype)
+        jg = jax.jit(jax.grad(lambda p, b: JModel(jc).loss(p, b)[0]))(p, to_j(batch))
+        tg, _ = make_grad_step(TModel(tc, "cpu"))(params_from_jax(host(p), tc, "cpu"), to_t(batch))
+        return [f32(g) for g in jax.tree.leaves(jg)], [f32(g) for g in _bridge.tree_leaves(tg)]
+
+    (j16, t16), (j32, t32) = grads("bfloat16", jp), grads("float32", jp32)
+    ref_drift, port_drift = whole(j16, j32), whole(t16, t32)
+    assert 0.1 < ref_drift and ref_drift / 2 <= port_drift <= 2 * ref_drift, (port_drift, ref_drift)
 
 
 def test_recurrent_bf16_keeps_its_fp32_leaves_and_grads():
@@ -597,6 +671,127 @@ def test_jamba_kernel_path_counts_its_launches_and_matches_the_plain_path(monkey
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5, rtol=1e-4)
 
 
+@pytest.mark.parametrize("arch,pods", [("xlstm-125m", 2), ("gemma2-27b", 1)])
+def test_trainer_on_the_kernel_path_launches_as_phase_13_expects(arch, pods, monkeypatch):
+    """Phase 13 of ``chip_smoke.py`` rehearsed on the CPU: the arch's smoke
+    config in bf16 with remat (gemma2 at 24 tokens, past its window of 16)
+    through ``Trainer`` on the kernel path, whose wrappers take their plain
+    versions on the CPU and are patched to count each call through the kernel
+    module's own launch counter.  At 2 pods both ``fwdbwd`` steps must be in
+    flight at once (a barrier that both must reach).  From counts of 0, one
+    iteration's ``ops.launch_counts()`` must equal ``chip_smoke.train_launches``
+    exactly; every leaf changes and keeps its dtype, the fp32 ones included."""
+    from repro_torch.kernels import decode_attention as kdecode
+
+    cs = _chip_smoke()
+    cfg = dataclasses.replace(tget(arch, smoke=True), dtype="bfloat16", remat=True)
+    tr = Trainer(cfg, steps=2, n_pods=pods, global_batch=4, seq_len=24, ckpt_dir=None, device="cpu")
+    together = threading.Barrier(pods, timeout=60)
+    step_fns = tr.step_fns
+
+    def concurrent_fns():
+        fns = step_fns()
+        for i in range(pods):
+            def fwdbwd(inputs, inner=fns[f"fwdbwd_{i}"]):
+                together.wait()  # breaks, and the step fails, unless every pod's fwdbwd runs at once
+                return inner(inputs)
+            fns[f"fwdbwd_{i}"] = fwdbwd
+        return fns
+
+    def counted(mod, fn):
+        def call(*a, **k):
+            out = fn(*a, **k)
+            mod._count_launch()
+            return out
+        return call
+
+    monkeypatch.setattr(tr, "step_fns", concurrent_fns)
+    monkeypatch.setattr(tlayers, "_use_kernel", lambda x: True)
+    for mod, name in ((krmsnorm, "rmsnorm"), (kflash, "flash_attention"), (kdecode, "decode_attention")):
+        monkeypatch.setattr(mod, name, counted(mod, getattr(mod, name)))
+    p0 = tr.params
+    kops.reset_launch_counts()
+    m = tr.iteration(0)
+    assert kops.launch_counts() == cs.train_launches(cfg, pods)
+    assert np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
+    fp32 = [n for n, t in _bridge.tree_flatten_with_path(p0) if t.dtype == torch.float32]
+    assert fp32 == [n for n, _ in _bridge.tree_flatten_with_path(p0) if cs.FP32_LEAF.search(n)]
+    assert bool(fp32) == (arch == "xlstm-125m")
+    for (name, a), b in zip(_bridge.tree_flatten_with_path(p0), _bridge.tree_leaves(tr.params)):
+        assert a.dtype == b.dtype, name
+        assert not torch.equal(a, b), name
+
+
+def test_mixer_backward_check_of_phase_13_runs_and_sees_a_planted_fault():
+    """``chip_smoke.mixers_backward_card_vs_cpu`` rehearsed with the CPU on
+    both sides, at the smoke configs' widths in fp32: every grad agrees, and
+    a planted fault (each mixer's input rounded to bf16 on the checked side,
+    as TF32 rounds a matmul's on the card) reads beyond fp32 TOL; with
+    nothing planted, the check fails."""
+    from repro_torch.models import recurrent
+
+    cs = _chip_smoke()
+    cfgs = {mixer: dataclasses.replace(tget(arch, smoke=True), dtype="float32")
+            for mixer, arch in (("mamba", "jamba-v0.1-52b"), ("mlstm", "xlstm-125m"), ("slstm", "xlstm-125m"))}
+
+    @contextlib.contextmanager
+    def rounded_inputs():
+        with pytest.MonkeyPatch.context() as mp:
+            for mixer in cfgs:
+                mix = getattr(recurrent, f"{mixer}_mix")
+                mp.setattr(recurrent, f"{mixer}_mix",
+                           lambda cfg, p, x, state=None, mix=mix: mix(cfg, p, x.bfloat16().float(), state))
+            yield
+
+    out = cs.mixers_backward_card_vs_cpu(torch, "CPU rehearsal", device="cpu", cfgs=cfgs, plant=rounded_inputs)
+    assert sorted(out) == sorted(cfgs)
+    for mixer, r in out.items():
+        assert len(r["rel_l2"]) > 3 and max(r["rel_l2"].values()) <= 2e-5, mixer
+        assert r["planted_rel_l2"] > 2e-5, mixer
+    with pytest.raises(SystemExit, match="cannot tell the planted fault"):
+        cs.mixers_backward_card_vs_cpu(torch, "CPU rehearsal", device="cpu", cfgs=cfgs, plant=contextlib.nullcontext)
+
+
+def test_launch_counters_add_under_their_locks():
+    """Each kernel module adds a launch under its lock, so that two pods'
+    threads cannot lose a count between the read and the write of a bare
+    ``launches += 1``: while the lock is held, a thread's ``_count_launch``
+    waits and adds nothing; released, it adds its one.  And 4 threads adding
+    20,000 each, switching every microsecond, add 80,000."""
+    from repro_torch.kernels import decode_attention as kdecode
+
+    mods = {"rmsnorm": krmsnorm, "flash_attention": kflash, "decode_attention": kdecode}
+    for name, mod in mods.items():
+        kops.reset_launch_counts()
+        with mod._launch_lock:
+            t = threading.Thread(target=mod._count_launch)
+            t.start()
+            t.join(0.2)
+            assert t.is_alive() and kops.launch_counts()[name] == 0, name
+        t.join(10)
+        assert not t.is_alive() and kops.launch_counts() == {k: int(k == name) for k in mods}, name
+
+    def add():
+        for _ in range(20_000):
+            for mod in mods.values():
+                mod._count_launch()
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        kops.reset_launch_counts()
+        threads = [threading.Thread(target=add) for _ in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    finally:
+        sys.setswitchinterval(old)
+    assert kops.launch_counts() == {k: 80_000 for k in mods}
+    kops.reset_launch_counts()
+    assert kops.launch_counts() == {k: 0 for k in mods}
+
+
 def test_moe_trainer_keeps_the_fp32_router_in_a_bf16_model():
     """One iteration of granite-moe's smoke config in bf16, 2 pods, int8
     gradsync: AdamW and the compression keep each leaf's own dtype (the
@@ -656,9 +851,9 @@ def test_compressed_training_tracks_uncompressed():
 
 
 def test_an_iteration_passes_the_trees_by_reference():
-    # The backend's store places tensors and arrays only: the params and
-    # optimizer trees (dicts, a NamedTuple) and the numpy batch (a dict) reach
-    # the steps as the very objects given, so no iteration copies the model.
+    # The inprocess backend places nothing: the params and optimizer trees
+    # (dicts, a NamedTuple) and the numpy batch (a dict) reach the steps as
+    # the very objects given, so no iteration copies the model.
     tr = Trainer(tget(ARCH, smoke=True), steps=1, n_pods=2, global_batch=4, seq_len=8,
                  ckpt_dir=None, device="cpu")
     fns, seen = tr.step_fns(), {}
@@ -676,8 +871,14 @@ def test_an_iteration_passes_the_trees_by_reference():
     assert seen["fwdbwd_1"]["params_1"] is tr.params
     assert seen["update_0"]["opt_0"] is tr.opt_state
     assert isinstance(seen["fwdbwd_1"]["batch_1"]["tokens"], np.ndarray)
-    assert res.stats["device_puts"] == 0 and res.stats["bytes_moved"] == 0
-    assert res.stats["policy"] == {"retries": 0, "timeouts": 0}  # FaultPolicy(max_retries=2)
+    # Lowered as the reference trainer lowers: inprocess, RetryPolicy(max_retries=2).
+    assert (tr.lowered.backend_name, tr.lowered.options) == ("inprocess", {"retry": RetryPolicy(max_retries=2)})
+    assert res.backend == "inprocess"
+    # 2 shards, 2 fwdbwds, gradsync, 2 updates; the plan's 4 comm actions fire
+    # as 2 send/recv pairs (the reference's inprocess run reports 7 and 2 too).
+    st = res.stats
+    assert (st.execs, st.comms, st.retries, st.timeouts, st.speculations) == (7, 2, 0, 0, 0)
+    assert sorted(step for step, _, _ in st.exec_log) == sorted(set(fns) - {"ckpt"})  # no ckpt_dir
 
 
 # -- the slice as a whole: resume both packages from one reference checkpoint ---
