@@ -178,6 +178,24 @@ Phases, each of which exits nonzero on failure:
    within fp32 TOL of the CPU's by relative L2, and beyond it with TF32
    planted.  The child's failure fails the run.
 
+14. Distribution on the card, in a third child process (``chip_smoke.py
+   --distribution OUT``) started after phase 13's: a one-rank NCCL group
+   from an in-process ``HashStore`` (no network), ``make_mesh((1, 1),
+   ("data", "model"))`` on cuda, destroyed before the child exits (NCCL
+   takes one rank a GPU, so one card shows only the 1 x 1 mesh).  D-llama
+   (llama3.2-3b at full width, 2 of 28 layers) and D-granite
+   (granite-moe-1b-a400m at full width, 4 of 24 layers), fp32 with remat,
+   batch 4 x 512: the weights placed as DTensors by ``distribute_params(
+   param_specs(...))``, one fwdbwd with ``set_hints`` and one without on
+   plain tensors, each from launch counts of 0.  The counts must equal each
+   other and one pod's training iteration's; H1 (``layers.sdpa_on_shards``)
+   must be taken, and H2 (``moe.apply_moe_sharded``) for granite; loss and
+   aux within 1e-5 and every grad within 1e-4 (the embedding's also 1e-5 by
+   relative L2); every param and grad a cuda DTensor with the specs'
+   placements; one AdamW update with ``zero1_specs`` moments equal to the
+   unsharded one.  Prints each mode's ms, device ops, busy share and peak GB.
+   The child's failure fails the run.
+
 ``python3 chip_smoke.py --rmsnorm-times ROOT`` only times the rmsnorm
 wrapper of the checkout at ROOT (see :func:`rmsnorm_times`), and
 ``--dataplane-times ROOT`` only its untraced data plane (see
@@ -187,7 +205,7 @@ checkouts at A and B in alternating pairs (see :func:`dataplane_compare`).
 The line before the last is the kernels' JSON record (each kernel's
 launches on each path under ``launches_by_path``), the data plane's,
 the traced phase's, training's, the MoE phase's, the recurrent phase's,
-the families' and phase 13's numbers above the card's name; the last line is
+the families', phase 13's and phase 14's numbers above the card's name; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 rest of the repository beside it, it exits nonzero and prints no result.
 """
@@ -390,6 +408,20 @@ TRAIN_LOSS_RTOL, GRAD_REL_L2_TOL = 1e-2, 5e-2
 # state n stays >= 1), gets ~1e-9 of the whole, and two paths read 1.4-2.3
 # apart there by its own norm, in fp32 too (PERF.md, section 6).
 LEAF_FLOOR = 1e-6
+
+# Phase 14: distribution on the card.  Each cell: (arch, depth) at full
+# width, fp32, remat, batch DIST_BATCH x DIST_SEQ, on a 1 x 1 mesh (one card:
+# NCCL takes one rank a GPU).  D-llama: llama3.2-3b at 2 of 28 layers (0.6 B
+# params, 2.4 GB fp32, and as much again in grads); Hkv 8 divides TP 1, so H1
+# is head-parallel.  D-granite: granite-moe-1b-a400m at 4 of 24 layers (0.27
+# B params); H1, H2 (apply_moe_sharded) and H4.
+DIST_CELLS = {"D-llama": ("llama3.2-3b", 2), "D-granite": ("granite-moe-1b-a400m", 4)}
+DIST_BATCH, DIST_SEQ = 4, 512
+# Hinted against unhinted on the same weights and batch: loss and aux within
+# 1e-5 and each grad leaf within 1e-4 by max abs, the tolerances of
+# tests/test_hints.py; the embedding's gradient sums rows with atomics in an
+# order that changes from run to run, so it is held by relative L2 too.
+DIST_LOSS_TOL, DIST_GRAD_TOL, DIST_EMBED_REL_L2 = 1e-5, 1e-4, 1e-5
 
 # The leaves that a bf16 model keeps in fp32 (the mLSTM's input and forget
 # gates, the sLSTM's gate biases): AdamW must leave them fp32.
@@ -2961,6 +2993,237 @@ def phase_training(torch, smi: str, sku: str) -> dict:
     return out
 
 
+# -- phase 14: distribution on the card -------------------------------------------------
+
+
+def dist_launches(cfg) -> dict:
+    """The launches of one fwdbwd (``Model.loss`` and its grads) of
+    decoder-only ``cfg`` with remat: one pod's training iteration's
+    (:func:`train_launches`), hinted or not."""
+    return train_launches(cfg, 1)
+
+
+def dist_fwdbwd(torch, model, params, batch) -> tuple:
+    """``Model.loss`` and the grads of every leaf of ``params`` (which
+    require grad): ``(loss, aux, [grads in leaf order])``."""
+    from repro_torch._bridge import tree_leaves
+
+    loss, met = model.loss(params, batch)
+    return loss, met["aux"], list(torch.autograd.grad(loss, tree_leaves(params)))
+
+
+@contextlib.contextmanager
+def counted_branches():
+    """Counts of the hinted branches while inside: H1's local attention
+    (``layers.sdpa_on_shards``) and H2's expert-local MoE
+    (``moe.apply_moe_sharded``), each wrapped for the while."""
+    from repro_torch.models import layers, moe
+
+    counts = {"H1": 0, "H2": 0}
+    orig = layers.sdpa_on_shards, moe.apply_moe_sharded
+
+    def h1(*a, **k):
+        counts["H1"] += 1
+        return orig[0](*a, **k)
+
+    def h2(*a, **k):
+        counts["H2"] += 1
+        return orig[1](*a, **k)
+
+    layers.sdpa_on_shards, moe.apply_moe_sharded = h1, h2
+    try:
+        yield counts
+    finally:
+        layers.sdpa_on_shards, moe.apply_moe_sharded = orig
+
+
+def dist_cell(torch, cell: str, mesh, smi: str, device: str = "cuda") -> dict:
+    """Phase 14a/b: one D cell (DIST_CELLS) on the 1 x 1 ``mesh``.  Random
+    weights from SEED, carried through ``params_to_jax`` / ``params_from_jax``
+    and placed by ``distribute_params(param_specs(...))``; the batch placed by
+    ``batch_specs``.  One fwdbwd with ``set_hints`` on the DTensors and one
+    without hints on the plain tensors, each from launch counts of 0: the
+    counts equal each other and :func:`dist_launches`; H1 is taken (and H2
+    where the arch has MoE FFNs); loss and aux within DIST_LOSS_TOL, every
+    grad leaf within DIST_GRAD_TOL (the embedding's by DIST_EMBED_REL_L2 too);
+    every param and grad (placed as its param by ``redistribute_like``) a
+    DTensor on ``device`` with the specs' placements; one AdamW update with
+    ``zero1_specs`` moments equal to the unsharded update.  Then each mode's
+    ms (host clock, synchronised, median of 3 after a warm one), device ops
+    and busy share from one profiled fwdbwd, and peak GB."""
+    from torch.distributed.tensor import DTensor
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch._bridge import tree_flatten_with_path, tree_leaves, tree_unflatten
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch.sharding import (batch_specs, distribute_params, param_specs, redistribute_like,
+                                             to_shardings)
+    from repro_torch.models import Model, params_from_jax, params_to_jax
+    from repro_torch.models.hints import ShardHints, set_hints
+    from repro_torch.optim import adamw, zero1_specs
+
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    arch, n_layers = DIST_CELLS[cell]
+    cfg = dataclasses.replace(get_config(arch), n_layers=n_layers, dtype="float32", remat=True)
+    model = Model(cfg, device)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    base = model.init(gen)
+    specs = param_specs(cfg, base, mesh)
+    placed = distribute_params(params_from_jax(params_to_jax(base, cfg), cfg, device), specs, mesh)
+    for t in tree_leaves(base) + tree_leaves(placed):
+        t.requires_grad_()
+    tokens = torch.randint(0, cfg.vocab, (DIST_BATCH, DIST_SEQ + 1), generator=gen, device=device)
+    batch = {"tokens": tokens[:, :-1].contiguous(), "labels": tokens[:, 1:].contiguous()}
+    dbatch = distribute_params(batch, batch_specs(cfg, batch, mesh), mesh)
+    names = [n for n, _ in tree_flatten_with_path(base)]
+    n_params = sum(t.numel() for t in tree_leaves(base))
+    hints = ShardHints(mesh=mesh, dp_axes=("data",))
+    kinds = sorted({f"{m}/{f}" for m, f in cfg.layer_seq()})
+    print(f"[14] {cell}: {arch}, {n_layers} layers ({', '.join(kinds)}) at full width (d {cfg.d_model}, vocab "
+          f"{cfg.vocab}, fp32, remat), {n_params / 1e9:.3f} B params; batch {DIST_BATCH} x {DIST_SEQ}; mesh "
+          f"{tuple(mesh.shape)} {mesh.mesh_dim_names} on {mesh.device_type}")
+
+    def run(hinted: bool):
+        set_hints(hints if hinted else None)
+        try:
+            return dist_fwdbwd(torch, model, placed if hinted else base, dbatch if hinted else batch)
+        finally:
+            set_hints(None)
+
+    out = {"arch": arch, "layers": n_layers, "params": n_params, "launches": {}, "ms": {}, "device_ops": {},
+           "busy_share": {}, "peak_gb": {}}
+    res = {}
+    for hinted in (False, True):
+        mode = "hinted" if hinted else "unhinted"
+        sync()
+        kops.reset_launch_counts()
+        with counted_branches() as branches:
+            res[mode] = run(hinted)
+        sync()
+        out["launches"][mode] = kops.launch_counts()
+        out[f"branches_{mode}"] = dict(branches)
+    want = dist_launches(cfg)
+    print(f"[14] {cell} launches in one fwdbwd: unhinted {out['launches']['unhinted']}, hinted "
+          f"{out['launches']['hinted']} (expected {want}); hinted branches {out['branches_hinted']}")
+    if not out["launches"]["unhinted"] == out["launches"]["hinted"] == want:
+        fail(f"{cell}: the hinted and unhinted fwdbwd did not launch each kernel as expected")
+    moe = any(f == "moe" for _, f in cfg.layer_seq())
+    if out["branches_hinted"]["H1"] == 0 or (moe and out["branches_hinted"]["H2"] == 0) or any(
+            out["branches_unhinted"].values()):
+        fail(f"{cell}: the hinted branches were not taken, or taken without hints: {out}")
+
+    (l0, a0, g0), (l1, a1, g1) = res["unhinted"], res["hinted"]
+    l0, a0, l1, a1 = l0.detach(), a0.detach(), l1.full_tensor().detach(), a1.full_tensor().detach()
+    dl, da = float((l1 - l0).abs()), float((a1 - a0).abs())
+    errs = [float((a.full_tensor() - b).abs().max()) for a, b in zip(g1, g0)]
+    worst = max(range(len(errs)), key=errs.__getitem__)
+    embed_rel = rel_l2(g1[names.index("embed")].full_tensor(), g0[names.index("embed")])
+    finite = bool(l0.isfinite()) and all(bool(g.isfinite().all()) for g in g0)
+    print(f"[14] {cell} hinted vs unhinted: loss {float(l1):.7f} vs {float(l0):.7f} (|d| {dl:.3e}), aux "
+          f"{float(a1):.7f} vs {float(a0):.7f} (|d| {da:.3e}; tol {DIST_LOSS_TOL:g}); grads max abs {errs[worst]:.3e} "
+          f"({names[worst]}; tol {DIST_GRAD_TOL:g}), embed rel L2 {embed_rel:.3e} (tol {DIST_EMBED_REL_L2:g})")
+    if not (finite and dl <= DIST_LOSS_TOL and da <= DIST_LOSS_TOL and max(errs) <= DIST_GRAD_TOL
+            and embed_rel <= DIST_EMBED_REL_L2):
+        fail(f"{cell}: the hinted fwdbwd disagrees with the unhinted one, or is not finite")
+    out.update({"loss": float(l0), "aux": float(a0), "loss_abs_err": dl, "aux_abs_err": da,
+                "grad_max_abs_err": errs[worst], "grad_worst_leaf": names[worst], "embed_rel_l2": embed_rel})
+
+    # Placements: every param as its spec, every grad as its param once placed.
+    want_pl = [s.placements for s in tree_leaves(to_shardings(mesh, specs))]
+    raw = [tuple(g.placements) for g in g1]
+    grads = tree_leaves(redistribute_like(tree_unflatten(placed, g1), placed))
+    bad = [n for n, p, g, pl in zip(names, tree_leaves(placed), grads, want_pl)
+           if not (isinstance(p, DTensor) and isinstance(g, DTensor) and p.device.type == device
+                   and g.device.type == device and tuple(p.placements) == tuple(pl) == tuple(g.placements))]
+    print(f"[14] {cell}: {len(names)} params placed by param_specs, their grads placed as the params "
+          f"({sum(r != tuple(pl) for r, pl in zip(raw, want_pl))} left elsewhere by autograd); "
+          f"misplaced {bad[:4]}")
+    if bad:
+        fail(f"{cell}: params or grads not placed as their specs: {bad[:4]}")
+
+    # One AdamW update, moments placed by zero1_specs, against the unsharded one.
+    ocfg = adamw.AdamWConfig(warmup_steps=0)
+    with torch.no_grad():
+        new0, st0, _ = adamw.update(ocfg, tree_unflatten(base, g0), adamw.init(base), base)
+        zspecs = zero1_specs(specs, base, data_size=1)
+        mom = adamw.init(base)
+        state = adamw.AdamWState(step=mom.step, m=distribute_params(mom.m, zspecs, mesh),
+                                 v=distribute_params(mom.v, zspecs, mesh))
+        del mom
+        new1, st1, _ = adamw.update(ocfg, tree_unflatten(placed, grads), state, placed)
+        upd_err = max(float((a.full_tensor() - b).abs().max()) for a, b in zip(tree_leaves(new1), tree_leaves(new0)))
+        kept = all(tuple(a.placements) == tuple(b.placements) for a, b in zip(tree_leaves(new1), tree_leaves(placed)))
+    print(f"[14] {cell} AdamW with zero1_specs moments vs unsharded: new params max abs {upd_err:.3e}; "
+          f"placements kept {kept}")
+    if not (upd_err <= DIST_GRAD_TOL and kept):
+        fail(f"{cell}: the ZeRO-1 AdamW update disagrees with the unsharded one")
+    out["adamw_max_abs_err"] = upd_err
+    del new0, st0, new1, st1, state, res, g0, g1, grads
+    gc.collect()
+
+    for hinted in (False, True):
+        mode = "hinted" if hinted else "unhinted"
+        if on_card:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        ms = []
+        for i in range(4):  # a warm one, then 3 timed
+            sync()
+            t0 = time.perf_counter()
+            run(hinted)
+            sync()
+            if i:
+                ms.append((time.perf_counter() - t0) * 1e3)
+        out["ms"][mode] = ms
+        out["peak_gb"][mode] = torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+        med = statistics.median(ms)
+        if on_card:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                run(hinted)
+                sync()
+            events = device_events(prof)
+            out["device_ops"][mode], out["busy_share"][mode] = len(events), sum(e[1] for e in events) / med
+            device = (f"{len(events)} device ops, busy {out['busy_share'][mode]:.1%}; peak "
+                      f"{out['peak_gb'][mode]:.2f} GB")
+        else:
+            out["device_ops"][mode] = out["busy_share"][mode] = None
+            device = "device ops, busy share and peak not measured"
+        print(f"[14] {cell} {mode} fwdbwd {fmt_ms(ms)} ms, median {med:.2f} ms; {device}  ({smi})")
+    out["device"] = smi
+    return out
+
+
+def phase_distribution(torch, smi: str, sku: str, device: str = "cuda") -> dict:
+    """Phase 14: a one-rank process group (NCCL on the card, from an
+    in-process ``HashStore``: no network), ``make_mesh((1, 1), ("data",
+    "model"))`` on it, and each D cell (:func:`dist_cell`); the group is
+    destroyed before it returns."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    kw = {"device_id": torch.device("cuda", 0)} if device == "cuda" else {}
+    dist.init_process_group("nccl" if device == "cuda" else "gloo", store=dist.HashStore(), rank=0, world_size=1,
+                            timeout=timedelta(seconds=60), **kw)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device_type=device)
+        out = {}
+        for cell in DIST_CELLS:
+            t0 = time.monotonic()
+            out[cell] = dist_cell(torch, cell, mesh, smi, device)
+            print(f"[14] {cell} took {time.monotonic() - t0:.1f} s")
+            gc.collect()
+            if device == "cuda":
+                torch.cuda.empty_cache()
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
 def fmt_ms(xs) -> str:
     return "[" + ", ".join(f"{x:.2f}" for x in xs) + "]"
 
@@ -3080,6 +3343,8 @@ def main() -> int:
                     help="only phase 12, the other families, its result to OUT (the child process of a whole run)")
     ap.add_argument("--training", metavar="OUT", type=Path,
                     help="only phase 13, training xlstm-125m and gemma2-27b, its result to OUT (a child process)")
+    ap.add_argument("--distribution", metavar="OUT", type=Path,
+                    help="only phase 14, distribution on a 1 x 1 mesh, its result to OUT (a child process)")
     opts = ap.parse_args()
     # One process makes and frees models of up to 34 GB and trains two more:
     # with fixed segments the freed memory splinters, and phase 11's jamba
@@ -3116,6 +3381,8 @@ def main() -> int:
         return child(torch, opts.families, phase_families)
     if opts.training is not None:
         return child(torch, opts.training, phase_training)
+    if opts.distribution is not None:
+        return child(torch, opts.distribution, phase_distribution)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -3163,6 +3430,9 @@ def main() -> int:
     # TR-gemma2 peaks at 68.29 GB (PERF.md, section 5), and from phase 10 on this
     # process holds 59-62 GiB reserved (PERF.md, section 7).
     training = run_child("13", "--training", "training")
+
+    # -- 14. distribution: the hinted model on DTensors, a 1 x 1 mesh -------------------------
+    distribution = run_child("14", "--distribution", "distribution")
 
     # -- 3. kernels vs plain -----------------------------------------------------
     bench = Bench(torch, sku)
@@ -3292,6 +3562,8 @@ def main() -> int:
                 **{f"serve {arch}": {path: c[k] for path, c in families[arch]["launches"].items()}
                    for arch in FAMILY_ARCHS},
                 **{f"train {cell}": training[cell]["launches"][k] for cell in TRAIN_CELLS},
+                **{f"fwdbwd {cell}": {mode: c[k] for mode, c in distribution[cell]["launches"].items()}
+                   for cell in DIST_CELLS},
             },
         })
     print(json.dumps({"dataplane": dataplane}))
@@ -3301,6 +3573,7 @@ def main() -> int:
     print(json.dumps({"recurrent": recurrent}))
     print(json.dumps({"families": families}))
     print(json.dumps({"training": training}))
+    print(json.dumps({"distribution": distribution}))
     print(f"kernels: {', '.join(r['name'] for r in record)}; {time.monotonic() - t_start:.1f} s in all")
     print(smi)
     print(json.dumps({"kernels": record}))

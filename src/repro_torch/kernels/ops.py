@@ -16,6 +16,10 @@ their kernel under :class:`KernelWithPlainGrad`, whose backward recomputes
 the plain version of ``ref.py`` on the saved inputs and differentiates it;
 otherwise (serving runs under ``torch.inference_mode``) they call the kernel
 directly.  Decode attention is for serving only and raises under grad.
+
+The kernels take raw pointers, so a DTensor must never reach them: each
+wrapper raises on one.  The model calls them on a DTensor's local shards
+(``models.hints.shard_map``).
 """
 
 from __future__ import annotations
@@ -56,6 +60,14 @@ class KernelWithPlainGrad(torch.autograd.Function):
         return (None, None, None, *(next(got) if n else None for n in needs))
 
 
+def _local_only(*ts) -> None:
+    """Raise on a DTensor: its ``data_ptr`` is not its shard's."""
+    from torch.distributed.tensor import DTensor
+
+    if any(isinstance(t, DTensor) for t in ts):
+        raise TypeError("a DTensor reached a kernel; call it on the local shards (models.hints.shard_map)")
+
+
 def _grad_needed(*ts: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
@@ -74,6 +86,7 @@ def _flash_ref_bl(q, k, v, **kw):
 
 def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0, q_offset=0, kv_len=None):
     """q: [B, Lq, Hq, d]; k/v: [B, Lk, Hkv, d] (model layout) → [B, Lq, Hq, d]."""
+    _local_only(q, k, v, kv_len, q_offset)
     kw = dict(causal=causal, window=window, softcap=softcap, kv_len=kv_len, q_offset=q_offset)
     if _grad_needed(q, k, v):
         return KernelWithPlainGrad.apply(_flash_bl, _flash_ref_bl, kw, q, k, v)
@@ -82,6 +95,7 @@ def flash_attention(q, k, v, *, causal=True, window=0, softcap=0.0, q_offset=0, 
 
 def decode_attention(q, k, v, kv_len):
     """q: [B, 1, Hq, d]; k/v cache: [B, M, Hkv, d] → [B, 1, Hq, d]."""
+    _local_only(q, k, v, kv_len)
     if _grad_needed(q, k, v):
         raise RuntimeError(
             "decode attention has no gradient: it serves one token against a KV cache, "
@@ -92,6 +106,7 @@ def decode_attention(q, k, v, kv_len):
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:
+    _local_only(x, w)
     if _grad_needed(x, w):
         return KernelWithPlainGrad.apply(_rmsnorm.rmsnorm, ref.rmsnorm_ref, {"eps": eps}, x, w)
     return _rmsnorm.rmsnorm(x, w, eps=eps)

@@ -23,6 +23,21 @@ values ``"plain"`` and ``"kernel"``):
 The default, ``None``, picks by device: ``"kernel"`` for CUDA tensors,
 ``"plain"`` for CPU tensors.  Matrix products stay ``torch.matmul``, as the
 reference left them to XLA.
+
+DTensors (:mod:`repro_torch.models.hints`).  With params placed on a mesh,
+the model's tensors are DTensors, and DTensor's sharding propagation
+places what the reference leaves to GSPMD.  ``rms_norm`` on a DTensor runs
+on its local rows (``hints.shard_map`` with x's own placements, its last
+dim gathered), so the switch decides on the local tensor.  Attention
+without a cache takes the reference's hint H1 under ``set_hints``: q, k and
+v are constrained head-parallel (``Hkv`` divides TP) or to sequence-sharded
+queries and replicated K/V, and :func:`sdpa_on_shards` runs ``sdpa`` on
+each rank's shards, the sequence-sharded queries at ``q_offset = tp_rank ·
+L/tp``.  Any other attention on DTensors runs ``sdpa`` on each rank's
+batch rows.  Either way the kernels get local tensors, and the switch
+decides on them.  The RoPE tables, made here as plain tensors, are placed
+replicated where they meet a DTensor (``hints.replicated_like``); matmuls
+on DTensors go through ``hints.matmul``.
 """
 
 from __future__ import annotations
@@ -37,6 +52,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 
 from .config import ModelConfig
+from .hints import DTensor, constrain, get_hints, matmul, pin, placements, replicated_like, shard_map, unshard
 
 Params = dict[str, Any]
 
@@ -75,9 +91,23 @@ def _use_kernel(x: torch.Tensor) -> bool:
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    if isinstance(x, DTensor):
+        return _rms_norm_on_shards(x, w, eps)
     if _use_kernel(x):
         return kops.rmsnorm(x, w, eps=eps)
     return kref.rmsnorm_ref(x, w, eps=eps)
+
+
+def _rms_norm_on_shards(x: DTensor, w: DTensor, eps: float) -> DTensor:
+    """``rms_norm`` on each rank's whole rows of ``x``; the weight is
+    replicated.  A partial sum is reduced first, and a last dim that
+    DTensor's propagation left sharded (a residual sum under H4 can be) is
+    gathered first: the norm reads whole rows."""
+    from torch.distributed.tensor import Replicate
+
+    pl = tuple(Replicate() if p.is_partial() or p.is_shard(x.ndim - 1) else p for p in x.placements)
+    rep = (Replicate(),) * len(pl)
+    return shard_map(lambda a, b: rms_norm(a, b, eps), x.device_mesh, (pl, rep), pl)(x, w)
 
 
 def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -115,7 +145,7 @@ def init_linear(gen: torch.Generator, d_in: int, d_out: int, dtype, *, bias: boo
 
 
 def linear(p: Params, x: torch.Tensor) -> torch.Tensor:
-    y = x @ p["w"]
+    y = matmul(x, p["w"])
     if "b" in p:
         y = y + p["b"]
     return y
@@ -137,8 +167,8 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     if positions.ndim == 1:
         positions = positions[None, :]
     angles = positions[..., None].float() * freqs  # [B, L, D/2]
-    cos = torch.cos(angles)[:, :, None, :]
-    sin = torch.sin(angles)[:, :, None, :]
+    cos = replicated_like(torch.cos(angles)[:, :, None, :], x)
+    sin = replicated_like(torch.sin(angles)[:, :, None, :], x)
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
@@ -244,6 +274,9 @@ def sdpa(
     chunk instead of contiguous ranges (the reference uses it when Lq is
     sequence-sharded).
     """
+    if isinstance(q, DTensor):
+        return _sdpa_on_batch_shards(q, k, v, causal=causal, window=window, softcap=softcap, q_offset=q_offset,
+                                     kv_valid=kv_valid, q_chunk=q_chunk, stride_chunks=stride_chunks)
     if _use_kernel(q):
         return kops.flash_attention(
             q, k, v, causal=causal, window=window, softcap=softcap,
@@ -283,6 +316,45 @@ def sdpa(
     return torch.cat(outs, dim=1)
 
 
+def split_heads(t: torch.Tensor, n: int, head_dim: int) -> torch.Tensor:
+    """``t`` [B, L, n·head_dim] as [B, L, n, head_dim].  A DTensor whose last
+    dim is sharded over more ranks than ``n`` heads divide is gathered along
+    it first: DTensor cannot split a shard across heads (the reference's
+    GSPMD shards part of a head instead)."""
+    if isinstance(t, DTensor):
+        mesh, last = t.device_mesh, t.ndim - 1
+        if n % math.prod(mesh.size(k) for k, p in enumerate(t.placements) if p.is_shard(last)):
+            t = unshard(t, [last])
+    return t.reshape(*t.shape[:-1], n, head_dim)
+
+
+def _sdpa_on_batch_shards(q: DTensor, k: DTensor, v: DTensor, **kw) -> DTensor:
+    """:func:`sdpa` on DTensors outside H1: each rank attends over its batch
+    rows with every head and every position (q, k and v gathered along all
+    other dims).  DTensor has rules for the plain path's ops, but not for
+    its head splits in the backward when the heads are sharded unevenly
+    over TP, so the whole call goes local, as for an op without a rule."""
+    from torch.distributed.tensor import Replicate
+
+    pl = tuple(p if p.is_shard(0) else Replicate() for p in q.placements)
+    return shard_map(lambda a, b, c: sdpa(a, b, c, **kw), q.device_mesh, (pl, pl, pl), pl)(q, k, v)
+
+
+def sdpa_on_shards(h, q_spec, kv_spec, q, k, v, **kw) -> DTensor:
+    """H1's attention: :func:`sdpa` on each rank's shards of q (``q_spec``)
+    and k, v (``kv_spec``), under the hints ``h``.  When q is sharded along
+    the sequence over TP, a rank's queries start at row ``tp_rank · Lq/tp``,
+    its ``q_offset``; the output is placed as q."""
+    seq_sharded = q_spec[1] == h.tp_axis
+
+    def local(ql, kl, vl):
+        off = h.mesh.get_local_rank(h.tp_axis) * ql.shape[1] if seq_sharded else 0
+        return sdpa(ql, kl, vl, q_offset=off, **kw)
+
+    pq, pkv = placements(*q_spec), placements(*kv_spec)
+    return shard_map(local, h.mesh, (pq, pkv, pkv), pq)(q, k, v)
+
+
 def attention_block(
     cfg: ModelConfig,
     p: Params,
@@ -308,23 +380,63 @@ def attention_block(
     and ``cache`` returned untouched.
     """
     b, l, _ = x.shape
-    q = linear(p["q"], x).reshape(b, l, cfg.n_heads, cfg.head_dim)
+    q = split_heads(linear(p["q"], x), cfg.n_heads, cfg.head_dim)
     if cross_kv is not None:
         k, v = cross_kv
         if use_rope:
             q = apply_rope(q, positions, cfg.rope_theta)
         out = sdpa(q, k, v, causal=False, softcap=cfg.attn_logit_softcap)
-        return linear(p["o"], out.reshape(b, l, cfg.q_dim)), cache
+        return linear(p["o"], pin(out.reshape(b, l, cfg.q_dim))), cache
 
-    k = linear(p["k"], x).reshape(b, l, cfg.n_kv_heads, cfg.head_dim)
-    v = linear(p["v"], x).reshape(b, l, cfg.n_kv_heads, cfg.head_dim)
+    k = split_heads(linear(p["k"], x), cfg.n_kv_heads, cfg.head_dim)
+    v = split_heads(linear(p["v"], x), cfg.n_kv_heads, cfg.head_dim)
     if use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
 
     softcap = cfg.attn_logit_softcap
     if cache is None:
-        out = sdpa(q, k, v, causal=causal, window=window, softcap=softcap)
+        # H1 (hints): explicit attention sharding, as the reference.  Two regimes:
+        #   · Hkv | tp  → head-parallel: everything local per KV head;
+        #   · Hkv ∤ tp  → sequence-sharded queries + replicated K/V: one
+        #     K/V all-gather per layer.
+        h = get_hints()
+        head_parallel = (
+            h is not None
+            and h.head_shard_attention
+            and cfg.n_kv_heads % h.tp_size == 0
+            and b % h.dp_size == 0
+        )
+        seq_parallel = (
+            h is not None
+            and not head_parallel
+            and h.seq_shard_attention
+            and l % h.tp_size == 0
+            and b % h.dp_size == 0
+        )
+        if head_parallel:
+            dp = h.dp_spec()
+            q = constrain(q, dp, None, h.tp_axis, None)
+            k = constrain(k, dp, None, h.tp_axis, None)
+            v = constrain(v, dp, None, h.tp_axis, None)
+            spec = (dp, None, h.tp_axis, None)
+            out = sdpa_on_shards(h, spec, spec, q, k, v, causal=causal, window=window, softcap=softcap)
+            out = constrain(out, dp, None, h.tp_axis, None)
+        elif seq_parallel:
+            dp = h.dp_spec()
+            q = constrain(q, dp, h.tp_axis, None, None)
+            k = constrain(k, dp, None, None, None)
+            v = constrain(v, dp, None, None, None)
+            # ≤4k: the TP split already bounds per-device score memory, so
+            # no chunking, as the reference.
+            out = sdpa_on_shards(
+                h, (dp, h.tp_axis, None, None), (dp, None, None, None), q, k, v,
+                causal=causal, window=window, softcap=softcap,
+                q_chunk=l if l <= 4096 else 2048, stride_chunks=True,
+            )
+            out = constrain(out, dp, h.tp_axis, None, None)
+        else:
+            out = sdpa(q, k, v, causal=causal, window=window, softcap=softcap)
         new_cache = None
     else:
         idx = cache["len"]  # int32 scalar on the device
@@ -342,7 +454,7 @@ def attention_block(
                 softcap=softcap, q_offset=idx, kv_valid=valid,
             )
         new_cache = {"k": cache["k"], "v": cache["v"], "len": valid}
-    return linear(p["o"], out.reshape(b, l, cfg.q_dim)), new_cache
+    return linear(p["o"], pin(out.reshape(b, l, cfg.q_dim))), new_cache
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device) -> Params:

@@ -45,6 +45,13 @@ recompute gives the same numbers with more recompute.
 Each block returns its MoE aux loss beside ``x`` (none for a dense FFN),
 and the stack sums them in layer order, under remat too, as the reference's
 ``_apply_stack``; ``Model.loss`` adds ``router_aux_weight ×`` the sum.
+
+With params placed on a mesh (``launch.sharding.distribute_params``) the
+same code runs on DTensors (see :mod:`repro_torch.models.hints`).  Under
+``set_hints`` a MoE FFN takes the reference's expert-local dispatch (H2,
+``moe.apply_moe_sharded``) when the experts and tokens divide the mesh, and
+a cache-free stack keeps its residual stream sequence-sharded over TP (H4):
+``x`` is constrained at the stack's entry and after every block.
 """
 
 from __future__ import annotations
@@ -61,6 +68,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch._bridge import resolve_device
 
 from .config import ModelConfig
+from .hints import constrain, get_hints, matmul, replicated_like
 from .layers import (
     apply_mlp,
     apply_norm,
@@ -71,6 +79,7 @@ from .layers import (
     init_mlp,
     init_norm,
     linear,
+    split_heads,
 )
 from .moe import apply_moe, init_moe
 from .recurrent import (
@@ -193,8 +202,8 @@ def apply_block(
     if "cross" in p:
         h = apply_norm(cfg, p["norm_cross"], x)
         b, s, _ = enc_out.shape
-        ck = linear(p["cross"]["k"], enc_out).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-        cv = linear(p["cross"]["v"], enc_out).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+        ck = split_heads(linear(p["cross"]["k"], enc_out), cfg.n_kv_heads, cfg.head_dim)
+        cv = split_heads(linear(p["cross"]["v"], enc_out), cfg.n_kv_heads, cfg.head_dim)
         out, _ = attention_block(
             cfg, p["cross"], h, positions=positions, causal=False, cross_kv=(ck, cv), use_rope=False,
         )
@@ -202,7 +211,19 @@ def apply_block(
     if ffn != "none":
         h = apply_norm(cfg, p["norm2"], x)
         if ffn == "moe":
-            out, aux = apply_moe(cfg, p["ffn"], h)
+            from .moe import apply_moe_sharded
+
+            hints = get_hints()
+            if (
+                hints is not None
+                and hints.local_moe_dispatch
+                and cfg.moe.n_experts % hints.tp_size == 0
+                and (x.shape[0] * x.shape[1]) % hints.dp_size == 0
+                and x.shape[0] % hints.dp_size == 0
+            ):
+                out, aux = apply_moe_sharded(cfg, p["ffn"], h)
+            else:
+                out, aux = apply_moe(cfg, p["ffn"], h)
         else:
             out = apply_mlp(cfg, p["ffn"], h)
         if cfg.post_block_norm:
@@ -230,6 +251,21 @@ def _apply_stack(
     """``(x, new cache layers or None, aux)`` of the blocks ``layers`` (in
     ``cfg.layer_seq()`` order); aux sums the blocks' MoE losses in layer
     order (an fp32 scalar; None when no block has a MoE FFN)."""
+    # H4 (hints): Megatron-SP residual stream — between blocks the
+    # [B, L, d] activations live sequence-sharded over the TP axis.
+    h = get_hints()
+    sp_resid = (
+        h is not None
+        and h.seq_parallel_residual
+        and cache is None  # decode keeps L=1
+        and x.shape[1] % h.tp_size == 0
+        and x.shape[0] % h.dp_size == 0
+    )
+
+    def sp(z):
+        return constrain(z, h.dp_spec(), h.tp_axis, None) if sp_resid else z
+
+    x = sp(x)
     new_layers = [] if cache is not None else None
     remat = cfg.remat and cache is None and torch.is_grad_enabled()
     aux_total = None
@@ -245,6 +281,7 @@ def _apply_stack(
             )
             if new_layers is not None:
                 new_layers.append(nc)
+        x = sp(x)
         if aux is not None:
             aux_total = aux if aux_total is None else aux_total + aux
     return x, new_layers, aux_total
@@ -295,14 +332,14 @@ class Model:
         emb = params["embed"]
         x = emb.index_select(0, tokens.reshape(-1)).reshape(*tokens.shape, emb.shape[1])
         if self.cfg.embed_scale:
-            x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=x.dtype)
+            x = x * replicated_like(torch.tensor(math.sqrt(self.cfg.d_model), dtype=x.dtype), x)
         return x
 
     def _logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         x = apply_norm(cfg, params["final_norm"], x)
         if cfg.tied_embeddings:
-            logits = x @ params["embed"].T
+            logits = matmul(x, params["embed"].T)
         else:
             logits = linear(params["lm_head"], x)
         if cfg.final_logit_softcap > 0.0:  # in the logits' dtype, as the reference
@@ -310,7 +347,7 @@ class Model:
             logits = torch.tanh(logits / c) * c
         if padded_vocab(cfg) != cfg.vocab:  # mask padded rows (differentiable: a masked_fill)
             pad = torch.arange(logits.shape[-1], device=logits.device) >= cfg.vocab
-            logits = logits.masked_fill(pad, -1e30)
+            logits = logits.masked_fill(replicated_like(pad, logits), -1e30)
         return logits
 
     def _encode(self, params: Params, src_embeds: torch.Tensor) -> torch.Tensor:
@@ -356,7 +393,7 @@ class Model:
         x, _, aux = _apply_stack(self.cfg, params["layers"], x, positions=pos, causal=True, cache=None,
                                  enc_out=enc_out)
         if aux is None:
-            aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            aux = replicated_like(torch.zeros((), dtype=torch.float32, device=x.device), x)
         return self._logits(params, x), aux
 
     # -- loss ----------------------------------------------------------------
@@ -380,8 +417,8 @@ class Model:
         dev = logits.device
         l = logits.shape[1]
         chunk = min(seq_chunk, l)
-        total = torch.zeros((), dtype=torch.float32, device=dev)
-        count = torch.zeros((), dtype=torch.float32, device=dev)
+        total = replicated_like(torch.zeros((), dtype=torch.float32, device=dev), logits)
+        count = replicated_like(torch.zeros((), dtype=torch.float32, device=dev), logits)
         for s in range(0, l, chunk):
             logp = torch.log_softmax(logits[:, s : s + chunk].float(), dim=-1)
             lb = labels[:, s : s + chunk].long()

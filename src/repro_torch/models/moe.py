@@ -28,19 +28,30 @@ choice adds a zero row to slot ``C - 1`` of its expert, as the reference's
 The three expert products are ``torch.bmm`` calls, as the reference leaves
 its ``einsum``s to XLA.
 
-The reference's expert-parallel variant under ``shard_map``
-(``apply_moe_sharded``) belongs with distribution (ROADMAP queue A, A7).
+H2 (hints): :func:`apply_moe_sharded` is the reference's expert-local
+dispatch, which the model takes under ``set_hints``.  Each (dp, tp) rank
+routes its *local* tokens, keeps only the choices owned by its local
+experts (slots over the local tokens, capacity ``moe_capacity(cfg,
+t_local)``), runs a local scatter, expert MLP and gather, and the partial
+outputs meet in one sum over TP: an ``all_reduce``, or a ``reduce_scatter``
+over the sequence when the residual stream is sequence-sharded (H4).  The
+router statistics of the aux loss are averaged over the data ranks.  The
+body, :func:`_local_moe_body`, is the reference's line for line (no router
+bias, as there), on ``hints.shard_map`` with the reference's in- and
+out-specs.  It is not :func:`apply_moe`: its slots and drops are local.
 """
 
 from __future__ import annotations
 
 import math
+import warnings
 from typing import Any, NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from .config import ModelConfig
+from .hints import pin, replicated_like, unshard
 from .layers import init_linear, linear
 
 Params = dict[str, Any]
@@ -130,7 +141,7 @@ def apply_moe(cfg: ModelConfig, p: Params, x: torch.Tensor) -> tuple[torch.Tenso
     m = cfg.moe
     b, l, d = x.shape
     t, k = b * l, m.top_k
-    xf = x.reshape(t, d)
+    xf = pin(unshard(x, [1]).reshape(t, d))  # flattening a sharded L: see hints.matmul
     r = route(cfg, p, xf)
     aux = aux_loss(cfg, r)
 
@@ -141,8 +152,10 @@ def apply_moe(cfg: ModelConfig, p: Params, x: torch.Tensor) -> tuple[torch.Tenso
     # Scatter tokens into [E, C, d]; dropped choices add zero rows.
     xk = xf[:, None, :].expand(t, k, d).reshape(t * k, d)  # choice-major: row t·k + j is token t
     contrib = torch.where(r.keep[:, None], xk, 0.0)
-    buf = torch.zeros((m.n_experts * cap, d), dtype=x.dtype, device=x.device)
-    buf = buf.index_add_(0, rows, contrib).view(m.n_experts, cap, d)
+    buf = replicated_like(torch.zeros((m.n_experts * cap, d), dtype=x.dtype, device=x.device), x)
+    # On DTensors, index_add_'s rule re-places a replicated buffer without
+    # moving its data when the rows are sharded: scatter replicated rows.
+    buf = buf.index_add_(0, unshard(rows), unshard(contrib)).view(m.n_experts, cap, d)
 
     # Batched expert gated MLP over the expert axis.
     h = F.silu(torch.bmm(buf, p["gate"])) * torch.bmm(buf, p["up"])
@@ -158,3 +171,138 @@ def apply_moe(cfg: ModelConfig, p: Params, x: torch.Tensor) -> tuple[torch.Tenso
         sh = p["shared"]
         y = y + linear(sh["down"], F.silu(linear(sh["gate"], xf)) * linear(sh["up"], xf))
     return y.reshape(b, l, d), aux
+
+
+# ---------------------------------------------------------------------------
+# H2 (hints): expert-local dispatch under shard_map
+# ---------------------------------------------------------------------------
+
+
+def _local_moe_body(cfg: ModelConfig, mesh, tp_axis: str, tp_size: int, dp_axes, *, scatter_out: bool):
+    import torch.distributed.nn.functional as dnn
+
+    m = cfg.moe
+    e_local = m.n_experts // tp_size
+    dp_groups = [mesh.get_group(a) for a in ((dp_axes,) if isinstance(dp_axes, str) else dp_axes)]
+    tp_group = mesh.get_group(tp_axis)
+
+    def collective(fn, *args, **kw):
+        # torch marks these deprecated for the functional collectives, which
+        # have no autograd for an all-reduce.
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", FutureWarning)
+            return fn(*args, **kw)
+
+    def pmean(v: torch.Tensor) -> torch.Tensor:
+        n = 1
+        for g in dp_groups:
+            v = collective(dnn.all_reduce, v, group=g)
+            n *= torch.distributed.get_world_size(g)
+        return v / n
+
+    def body(x_l, router, gate, up, down, sh_gate, sh_up, sh_down):
+        # x_l: [B_loc, L, d] (replicated over tp); gate/up/down: local experts
+        b, l, d = x_l.shape
+        t = b * l
+        k = m.top_k
+        xf = x_l.reshape(t, d)
+
+        logits = xf.float() @ router  # router replicated [d, E]
+        probs = torch.softmax(logits, dim=-1)
+        weights, experts = top_k(probs, k)
+        weights = weights / torch.sum(weights, dim=-1, keepdim=True)
+
+        # aux loss from globally-reduced router statistics
+        density_l = torch.mean(F.one_hot(experts, m.n_experts).sum(dim=1).float(), dim=0)
+        mean_prob_l = torch.mean(probs, dim=0)
+        # tokens are sharded over dp only; tp shards see identical stats.
+        density = pmean(density_l)
+        mean_prob = pmean(mean_prob_l)
+        aux = m.n_experts * torch.sum(density / k * mean_prob)
+
+        # my expert range on this tp shard
+        tp_idx = mesh.get_local_rank(tp_axis)
+        e_start = tp_idx * e_local
+
+        cap = moe_capacity(cfg, t)
+        flat_e = experts.reshape(t * k)
+        local_e = flat_e - e_start  # [T·k] in [0, e_local) if mine
+        mine = (local_e >= 0) & (local_e < e_local)
+        local_e_c = torch.where(mine, local_e, 0)
+
+        onehot = F.one_hot(local_e_c, e_local).to(torch.int32)
+        onehot = onehot * mine[:, None].to(torch.int32)
+        pos = torch.cumsum(onehot, dim=0, dtype=torch.int32) - onehot
+        slot = torch.sum(pos * onehot, dim=-1)
+        keep = mine & (slot < cap)
+        slot_c = torch.where(keep, slot, cap - 1).long()
+        rows = local_e_c * cap + slot_c  # rows of [e_local·C, d]
+
+        xk = xf[:, None, :].expand(t, k, d).reshape(t * k, d)
+        contrib = torch.where(keep[:, None], xk, 0.0).to(x_l.dtype)
+        buf = torch.zeros((e_local * cap, d), dtype=x_l.dtype, device=x_l.device)
+        buf = buf.index_add_(0, rows, contrib).view(e_local, cap, d)
+
+        h = F.silu(torch.bmm(buf, gate)) * torch.bmm(buf, up)
+        out_buf = torch.bmm(h, down).view(e_local * cap, d)
+
+        fetched = out_buf.index_select(0, rows)
+        fetched = torch.where(keep[:, None], fetched, 0.0)
+        yk = fetched.view(t, k, d) * weights[..., None].to(x_l.dtype)
+        y = torch.sum(yk, dim=1)
+
+        if sh_gate is not None:
+            # shared experts: column-parallel gate/up, row-parallel down —
+            # their partial sum rides the same sum over TP as the routed experts.
+            hs = F.silu(xf @ sh_gate) * (xf @ sh_up)
+            y = y + hs @ sh_down
+
+        # One collective over TP for the whole MoE layer; with an SP
+        # residual stream a reduce-scatter over the token axis.
+        if scatter_out:
+            chunks = [c.contiguous() for c in y.reshape(b, l, d).chunk(tp_size, dim=1)]
+            return collective(dnn.reduce_scatter, torch.empty_like(chunks[0]), chunks, group=tp_group), aux
+        y = collective(dnn.all_reduce, y, group=tp_group)
+        return y.reshape(b, l, d), aux
+
+    return body
+
+
+def apply_moe_sharded(cfg: ModelConfig, p: Params, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Expert-local MoE dispatch (requires installed ShardHints; x and the
+    params are DTensors on the hints' mesh)."""
+    from .hints import get_hints, placements, shard_map
+
+    h = get_hints()
+    if h is None:
+        raise RuntimeError("apply_moe_sharded needs ShardHints (set_hints)")
+    mesh = h.mesh
+    tp, dp = h.tp_axis, h.dp_spec()
+
+    def pl(*spec):
+        return placements(*spec, mesh=mesh)
+
+    none2 = pl(None, None)
+    shared = (None, None, None)
+    shared_pl = (None, None, None)
+    if "shared" in p:
+        shared = (p["shared"]["gate"]["w"], p["shared"]["up"]["w"], p["shared"]["down"]["w"])
+        shared_pl = (pl(None, tp), pl(None, tp), pl(tp, None))
+
+    dp_axes = h.dp_axes if len(h.dp_axes) > 1 else h.dp_axes[0]
+    scatter_out = h.seq_parallel_residual and x.shape[1] % (h.tp_size * h.tp_size) == 0
+    body = _local_moe_body(cfg, mesh, tp, h.tp_size, dp_axes, scatter_out=scatter_out)
+    fn = shard_map(
+        body,
+        mesh,
+        (
+            pl(dp, None, None),  # x
+            none2,  # router (replicated)
+            pl(tp, None, None),  # gate [E, d, de] expert-sharded
+            pl(tp, None, None),  # up
+            pl(tp, None, None),  # down
+            *shared_pl,  # shared expert weights (column/row parallel)
+        ),
+        (pl(dp, tp if scatter_out else None, None), pl()),
+    )
+    return fn(x, p["router"]["w"], p["gate"], p["up"], p["down"], *shared)

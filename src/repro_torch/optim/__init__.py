@@ -1,5 +1,4 @@
-"""Optimisation: AdamW + schedule, int8 gradient compression (ZeRO-1 specs
-wait for ROADMAP queue A, A7)."""
+"""Optimisation: AdamW + schedule, ZeRO-1 specs, int8 gradient compression."""
 
 from .adamw import AdamWConfig, AdamWState, global_norm, init, schedule, update
 from .compress import (
@@ -9,6 +8,7 @@ from .compress import (
     compressed_bytes,
     decompress,
 )
+from .zero import zero1_specs
 
 __all__ = [
     "AdamWConfig",
@@ -22,4 +22,5 @@ __all__ = [
     "allreduce_mean",
     "Compressed",
     "compressed_bytes",
+    "zero1_specs",
 ]

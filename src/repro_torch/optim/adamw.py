@@ -12,6 +12,10 @@ applied once.  Each leaf is computed once (the reference maps its update
 three times and leaves the duplicate arithmetic to XLA's CSE), and its
 intermediates are made in place in the update's own tensors, so that eager
 PyTorch holds few of them at once where XLA fuses them away.
+
+On DTensors (params placed by ``launch.sharding.param_specs``, moments by
+``optim.zero.zero1_specs``) the same arithmetic runs sharded, and each new
+param is placed as its param was.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from dataclasses import dataclass
 from typing import Any, NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch._bridge import tree_leaves, tree_map, tree_unflatten
 
@@ -105,7 +110,10 @@ def update(
         delta = torch.div(m, b1c).div_(den)
         del den
         delta.add_(torch.mul(p.float(), cfg.weight_decay)).mul_(lr)
-        return torch.sub(p.float(), delta).to(p.dtype), m, v
+        new_p = torch.sub(p.float(), delta).to(p.dtype)
+        if isinstance(p, DTensor):  # ZeRO-1: moments sharded over data, the update gathered
+            new_p = new_p.redistribute(p.device_mesh, p.placements)
+        return new_p, m, v
 
     new = [
         upd(p, g, m, v)

@@ -53,6 +53,10 @@ FAMILIES = (
 # card lowers to it), which it must reach too.
 INPROCESS = ("repro_torch.workflow.runtime", "repro_torch.exec.central", "repro_torch.backends.inprocess")
 
+# The distribution slice's modules (mesh, specs, ZeRO-1, hints), which it must reach too.
+DISTRIBUTION = ("repro_torch.launch.mesh", "repro_torch.launch.sharding", "repro_torch.optim.zero",
+                "repro_torch.models.hints")
+
 
 def test_port_imports_no_jax_and_no_repro():
     out = subprocess.run(
@@ -64,7 +68,7 @@ def test_port_imports_no_jax_and_no_repro():
     n_modules = int(out.stdout.split()[0])
     assert n_modules >= 15  # every module of the port was imported
     imported = set(out.stdout.splitlines()[1].split())
-    walked = set(TRAINING + MOE + RECURRENT + FAMILIES + INPROCESS)
+    walked = set(TRAINING + MOE + RECURRENT + FAMILIES + INPROCESS + DISTRIBUTION)
     assert walked <= imported, sorted(walked - imported)
 
 
