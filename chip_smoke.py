@@ -196,6 +196,29 @@ Phases, each of which exits nonzero on failure:
    unsharded one.  Prints each mode's ms, device ops, busy share and peak GB.
    The child's failure fails the run.
 
+15. The dry-run and the roofline on the card, in a fourth child process
+   (``chip_smoke.py --dryrun OUT``) started after phase 14's.  (a) The
+   dry-run on the card's own torch (``launch.dryrun.run_cell``, meta
+   DTensors over a ``"fake"`` group of 256 or 512 ranks on a cuda mesh;
+   nothing is allocated): llama3.2-3b x {train_4k, prefill_32k, decode_32k}
+   x pod1, train_4k also with ``--variant opt``, granite-moe-1b-a400m x
+   train_4k x pod1, jamba-v0.1-52b x long_500k x pod2 must come back ok,
+   llama3.2-3b x long_500k skipped with the reference's reason; llama's
+   train_4k global count within 15 % of the reference's unrolled compile
+   (3.0368e16) and the opt variant's within 1 % of the baseline's.  Prints
+   each cell's counted and analytic FLOPs a device, link bytes by op, the
+   dominant term, bound s, MFU bound and seconds.  (b) Two one-card cells on
+   the kernel path beside their roofline (``roofline.roofline`` on the
+   card's SKU, model = data = chips = 1, the analytic FLOPs and bytes):
+   R-decode, llama3.2-3b whole, one decode step at batch 4 (phase 6's
+   profile: its device ms, beside phase 6's own bound), and R-train,
+   llama3.2-3b at full width, 2 of 28 layers, one ``make_train_step`` step
+   (fwdbwd and AdamW) at batch 4 x 512, median of 3 after a warm one.
+   Launches exact from 0 (R-decode 57/0/28, R-train 9/4/0); neither may
+   measure under 0.95 x its bound; R-train's FLOPs counted on the plain path
+   on the card must equal the dry-run's count of the same cell on a 1 x 1
+   fake mesh of meta tensors.  The child's failure fails the run.
+
 ``python3 chip_smoke.py --rmsnorm-times ROOT`` only times the rmsnorm
 wrapper of the checkout at ROOT (see :func:`rmsnorm_times`), and
 ``--dataplane-times ROOT`` only its untraced data plane (see
@@ -205,7 +228,7 @@ checkouts at A and B in alternating pairs (see :func:`dataplane_compare`).
 The line before the last is the kernels' JSON record (each kernel's
 launches on each path under ``launches_by_path``), the data plane's,
 the traced phase's, training's, the MoE phase's, the recurrent phase's,
-the families', phase 13's and phase 14's numbers above the card's name; the last line is
+the families', phase 13's, phase 14's and phase 15's numbers above the card's name; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 rest of the repository beside it, it exits nonzero and prints no result.
 """
@@ -422,6 +445,29 @@ DIST_BATCH, DIST_SEQ = 4, 512
 # tests/test_hints.py; the embedding's gradient sums rows with atomics in an
 # order that changes from run to run, so it is held by relative L2 too.
 DIST_LOSS_TOL, DIST_GRAD_TOL, DIST_EMBED_REL_L2 = 1e-5, 1e-4, 1e-5
+
+# Phase 15: the dry-run on the card's torch, and two one-card cells held
+# beside their roofline.  DRY_CELLS: (arch, shape, mesh, variant).
+DRY_CELLS = (
+    ("llama3.2-3b", "train_4k", "pod1", "baseline"),
+    ("llama3.2-3b", "train_4k", "pod1", "opt"),
+    ("llama3.2-3b", "prefill_32k", "pod1", "baseline"),
+    ("llama3.2-3b", "decode_32k", "pod1", "baseline"),
+    ("granite-moe-1b-a400m", "train_4k", "pod1", "baseline"),
+    ("jamba-v0.1-52b", "long_500k", "pod2", "baseline"),
+    ("llama3.2-3b", "long_500k", "pod1", "baseline"),
+)
+DRY_SKIPPED = {  # the reference's reason, word for word
+    ("llama3.2-3b", "long_500k"): "pure full-attention arch: 500k decode is quadratic-cost (assignment: skip)",
+}
+# The reference's unrolled compile of llama3.2-3b x train_4k (the calibration
+# of tests/test_roofline.py), and how far the port's global count may be from
+# it; the opt variant's count from the baseline's.
+DRY_LLAMA_TRAIN, DRY_LLAMA_TOL, DRY_OPT_TOL = 3.0368e16, 0.15, 0.01
+# R-train: llama3.2-3b at full width, R_TRAIN_LAYERS of 28 layers, batch
+# R_BATCH x R_SEQ; the measured step may not fall under R_FLOOR x its bound.
+R_TRAIN_LAYERS, R_BATCH, R_SEQ, R_FLOOR = 2, 4, 512, 0.95
+R_DECODE_ROWS = 160  # phase 4's cache: a 128-token prompt and 32 generated
 
 # The leaves that a bf16 model keeps in fp32 (the mLSTM's input and forget
 # gates, the sLSTM's gate biases): AdamW must leave them fp32.
@@ -3224,6 +3270,193 @@ def phase_distribution(torch, smi: str, sku: str, device: str = "cuda") -> dict:
         dist.destroy_process_group()
 
 
+# -- phase 15: the dry-run and the roofline on the card ------------------------------------------
+
+
+def dry_cell(run_cell, cell) -> dict:
+    """One dry-run cell on the card's torch, its checks and its line."""
+    arch, shape, mesh, variant = cell
+    t0 = time.monotonic()
+    rec = run_cell(arch, shape, mesh, variant=variant)  # the mesh on cuda, the shards on meta
+    secs = time.monotonic() - t0
+    tag = f"{arch} x {shape} x {mesh} ({variant})"
+    want = DRY_SKIPPED.get((arch, shape))
+    if want is not None:
+        if rec.get("status") != "skipped" or rec.get("reason") != want:
+            fail(f"dry-run {tag}: expected skipped ({want}), got {rec}")
+        print(f"[15] {tag}: skipped ({rec['reason']})")
+        return rec
+    if rec.get("status") != "ok":
+        fail(f"dry-run {tag}: {rec}")
+    c, rl, coll, chips = rec["cost_analysis"], rec["roofline"], rec["collectives"], rec["chips"]
+    if not (c["flops_global"] > 0 and c["flops"] * chips >= c["flops_global"] * (1 - 1e-9)):
+        fail(f"dry-run {tag}: counts {c}")
+    if not set(coll["count"]) <= {"all-gather", "reduce-scatter", "all-reduce", "all-to-all", "collective-permute"}:
+        fail(f"dry-run {tag}: collectives {coll['count']}")
+    if rec["memory_analysis"]["temp_bytes"] is not None or rec["compile_s"] != 0.0:
+        fail(f"dry-run {tag}: temp_bytes and compile_s must be null and 0")
+    links = ", ".join(f"{k} {v:.4g} B" for k, v in sorted(coll["link_bytes"].items())) or "none"
+    print(f"[15] {tag}: FLOPs a device counted {c['flops']:.6g} (global {c['flops_global']:.6g}, each op once), "
+          f"analytic {rec['analytic']['flops_global'] / chips:.6g}; link bytes a device {links}; "
+          f"{rl['dominant']} bound {rl['bound_s']:.6g} s, MFU bound {rl['mfu_bound']:.4g}; "
+          f"{rec['lower_s']:.1f} s counted, {secs:.1f} s in all")
+    return rec
+
+
+def r_roofline(cfg, kind: str, seq: int, sku: str):
+    """The port's roofline of one step of ``cfg`` on one card of ``sku``:
+    the analytic FLOPs and HBM bytes at model = data = chips = 1."""
+    from repro_torch.configs.shapes import Shape
+    from repro_torch.roofline import model_flops, roofline
+    from repro_torch.roofline.analytic import analytic_flops_global, analytic_hbm_bytes_per_device
+
+    shape = Shape(f"r_{kind}", kind, seq, R_BATCH)
+    return roofline(sku=sku, flops_per_device=analytic_flops_global(cfg, shape),
+                    hbm_bytes_per_device=analytic_hbm_bytes_per_device(cfg, shape, model_ways=1, data_ways=1).total,
+                    link_bytes_per_device=0.0, model_flops_global=model_flops(cfg, shape), chips=1), shape
+
+
+def beside_bound(tag: str, measured_ms: float, rl, smi: str) -> dict:
+    bound_ms = rl.bound_s * 1e3
+    print(f"[15] {tag}: measured {measured_ms:.3f} ms, roofline bound {bound_ms:.3f} ms ({rl.dominant}: compute "
+          f"{rl.compute_s * 1e3:.3f}, memory {rl.memory_s * 1e3:.3f} ms), measured / bound "
+          f"{measured_ms / bound_ms:.3f}  ({smi})")
+    if not measured_ms >= R_FLOOR * bound_ms:
+        fail(f"{tag}: measured {measured_ms:.3f} ms under {R_FLOOR} x its bound {bound_ms:.3f} ms: "
+             "the model counts more than the card does")
+    return {"measured_ms": measured_ms, "bound_ms": bound_ms, "dominant": rl.dominant,
+            "compute_ms": rl.compute_s * 1e3, "memory_ms": rl.memory_s * 1e3, "ratio": measured_ms / bound_ms}
+
+
+def r_decode(torch, smi: str, sku: str) -> dict:
+    """R-decode: llama3.2-3b whole, a decode step of the kernel path."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch.serve import make_prompts
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import Model
+
+    cfg = get_config(ARCH)
+    model = Model(cfg, "cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(SEED))
+    prompts = make_prompts(cfg, BATCH, PROMPT_LEN, SEED, "cuda")
+    step = make_serve_step(model)
+    with torch.inference_mode():
+        cache = model.init_cache(BATCH, R_DECODE_ROWS)
+        _, cache = model.prefill(params, prompts, cache)
+        torch.cuda.synchronize()
+        kops.reset_launch_counts()
+        tok, cache = step(params, cache, prompts[:, -1:])
+        torch.cuda.synchronize()
+        launches = kops.launch_counts()
+    n = len(cfg.layer_seq())
+    want = {"rmsnorm": 2 * n + 1, "flash_attention": 0, "decode_attention": n}
+    print(f"[15] R-decode launches {launches} (expected {want})")
+    if launches != want:
+        fail("R-decode did not launch each kernel as expected")
+    prof = profiled_decode_bound(torch, "15", model, params, prompts, smi, sku)
+    rl, _ = r_roofline(cfg, "decode", R_DECODE_ROWS, sku)
+    out = beside_bound("R-decode (device ms a step, phase 6's profile)", prof["profile"]["step_device_ms"], rl, smi)
+    out.update(launches=launches, phase6_bound_ms=prof["decode_bound_ms"], step_wall_ms=prof["profile"]["step_wall_ms"])
+    del model, params, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def r_train(torch, smi: str, sku: str, device: str = "cuda") -> dict:
+    """R-train: llama3.2-3b at full width, R_TRAIN_LAYERS layers, one train
+    step of the kernel path timed; its FLOPs counted on the plain path and
+    by the dry-run on a 1 x 1 fake mesh of meta tensors."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch.dryrun import count_cell
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import Model, layers
+    from repro_torch.optim import AdamWConfig, adamw
+    from repro_torch.roofline.counting import count_step
+
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=R_TRAIN_LAYERS)
+    model = Model(cfg, device)
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    params = model.init(gen)
+    tokens = torch.randint(0, cfg.vocab, (R_BATCH, R_SEQ + 1), generator=gen, device=device, dtype=torch.int32)
+    batch = {"tokens": tokens[:, :-1].contiguous(), "labels": tokens[:, 1:].contiguous()}
+    step = make_train_step(model, AdamWConfig())
+    opt = adamw.init(params)
+
+    def timed() -> float:
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        new = step(params, opt, batch)
+        torch.cuda.synchronize()
+        ms = (time.monotonic() - t0) * 1e3
+        if not bool(torch.isfinite(new[2]["loss"])):
+            fail(f"R-train loss {new[2]['loss']}")
+        return ms
+
+    timed()  # warm
+    kops.reset_launch_counts()
+    times = [timed()]
+    launches = kops.launch_counts()
+    times += [timed(), timed()]
+    want = train_launches(cfg, 1)
+    print(f"[15] R-train launches {launches} (expected {want}); ms {fmt_ms(times)}")
+    if launches != want:
+        fail("R-train did not launch each kernel as expected")
+    rl, shape = r_roofline(cfg, "train", R_SEQ, sku)
+    out = beside_bound("R-train (median ms of 3 steps)", statistics.median(times), rl, smi)
+
+    prev = layers.get_attn_impl()
+    layers.set_attn_impl("plain")
+    try:
+        with count_step() as cost:
+            step(params, opt, batch)
+        torch.cuda.synchronize()
+    finally:
+        layers.set_attn_impl(prev)
+    dry, _ = count_cell(cfg, shape, (1, 1), ("data", "model"), device=device)
+    c = dry["cost_analysis"]
+    print(f"[15] R-train FLOPs: plain path on the card {cost.flops:.8g}, dry-run on a 1 x 1 fake mesh of meta "
+          f"tensors {c['flops']:.8g} (global {c['flops_global']:.8g}); analytic {rl.flops_per_device:.8g}")
+    if not (cost.flops == c["flops"] == c["flops_global"] > 0):
+        fail("R-train: the dry-run does not count what the card runs")
+    out.update(launches=launches, times_ms=times, flops_plain=cost.flops, flops_dryrun=c["flops"],
+               flops_analytic=rl.flops_per_device)
+    del model, params, opt
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_dryrun(torch, smi: str, sku: str) -> dict:
+    """Phase 15: the dry-run cells (:data:`DRY_CELLS`), R-decode and R-train."""
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.roofline import chip_sku
+
+    t0 = time.monotonic()
+    recs = {" ".join(cell): dry_cell(run_cell, cell) for cell in DRY_CELLS}
+    base = recs["llama3.2-3b train_4k pod1 baseline"]["cost_analysis"]["flops_global"]
+    opt = recs["llama3.2-3b train_4k pod1 opt"]["cost_analysis"]["flops_global"]
+    print(f"[15] llama3.2-3b x train_4k, global FLOPs: baseline {base:.6g}, opt {opt:.6g}; the reference's "
+          f"unrolled compile {DRY_LLAMA_TRAIN:.6g} ({base / DRY_LLAMA_TRAIN - 1:+.2%}, tol {DRY_LLAMA_TOL:.0%}; "
+          f"opt {opt / base - 1:+.3%}, tol {DRY_OPT_TOL:.0%}); dry-run {time.monotonic() - t0:.1f} s")
+    if not abs(base - DRY_LLAMA_TRAIN) <= DRY_LLAMA_TOL * DRY_LLAMA_TRAIN:
+        fail("llama3.2-3b x train_4k: the global count is not the reference's")
+    if not abs(opt - base) <= DRY_OPT_TOL * base:
+        fail("llama3.2-3b x train_4k: opt and baseline count different work")
+    card = chip_sku(torch.cuda.get_device_name(0))
+    if card is None:
+        fail(f"no roofline constants for {torch.cuda.get_device_name(0)}")
+    cells = {k: {f: r.get(f) for f in ("status", "reason", "chips", "lower_s", "total_s", "cost_analysis",
+                                       "memory_analysis", "analytic", "roofline", "slstm_steps_scaled")}
+             | ({"collectives": {f: r["collectives"][f] for f in ("count", "link_bytes", "total_link_bytes")}}
+                if "collectives" in r else {})
+             for k, r in recs.items()}
+    return {"cells": cells, "R-decode": r_decode(torch, smi, card), "R-train": r_train(torch, smi, card)}
+
+
 def fmt_ms(xs) -> str:
     return "[" + ", ".join(f"{x:.2f}" for x in xs) + "]"
 
@@ -3345,6 +3578,8 @@ def main() -> int:
                     help="only phase 13, training xlstm-125m and gemma2-27b, its result to OUT (a child process)")
     ap.add_argument("--distribution", metavar="OUT", type=Path,
                     help="only phase 14, distribution on a 1 x 1 mesh, its result to OUT (a child process)")
+    ap.add_argument("--dryrun", metavar="OUT", type=Path,
+                    help="only phase 15, the dry-run and the roofline, its result to OUT (a child process)")
     opts = ap.parse_args()
     # One process makes and frees models of up to 34 GB and trains two more:
     # with fixed segments the freed memory splinters, and phase 11's jamba
@@ -3383,6 +3618,8 @@ def main() -> int:
         return child(torch, opts.training, phase_training)
     if opts.distribution is not None:
         return child(torch, opts.distribution, phase_distribution)
+    if opts.dryrun is not None:
+        return child(torch, opts.dryrun, phase_dryrun)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -3433,6 +3670,9 @@ def main() -> int:
 
     # -- 14. distribution: the hinted model on DTensors, a 1 x 1 mesh -------------------------
     distribution = run_child("14", "--distribution", "distribution")
+
+    # -- 15. the dry-run on the card's torch, and the roofline beside two measured cells -----
+    dryrun = run_child("15", "--dryrun", "the dry-run")
 
     # -- 3. kernels vs plain -----------------------------------------------------
     bench = Bench(torch, sku)
@@ -3564,6 +3804,7 @@ def main() -> int:
                 **{f"train {cell}": training[cell]["launches"][k] for cell in TRAIN_CELLS},
                 **{f"fwdbwd {cell}": {mode: c[k] for mode, c in distribution[cell]["launches"].items()}
                    for cell in DIST_CELLS},
+                **{f"step {cell}": dryrun[cell]["launches"][k] for cell in ("R-decode", "R-train")},
             },
         })
     print(json.dumps({"dataplane": dataplane}))
@@ -3574,6 +3815,7 @@ def main() -> int:
     print(json.dumps({"families": families}))
     print(json.dumps({"training": training}))
     print(json.dumps({"distribution": distribution}))
+    print(json.dumps({"dryrun": dryrun}))
     print(f"kernels: {', '.join(r['name'] for r in record)}; {time.monotonic() - t_start:.1f} s in all")
     print(smi)
     print(json.dumps({"kernels": record}))

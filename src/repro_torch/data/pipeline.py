@@ -1,7 +1,7 @@
 """Deterministic sharded token pipeline (the port's copy of ``repro.data.pipeline``).
 
-numpy only, copied verbatim so that the two packages draw equal batches;
-``make_batch_specs`` (dry-run stand-ins) is not ported yet.
+numpy, copied verbatim so that the two packages draw equal batches;
+``make_batch_specs`` gives the dry-run's stand-ins as meta tensors.
 
 ``SyntheticLM`` generates a reproducible pseudo-corpus: token ``t`` of
 document ``i`` is a hash-mix of ``(seed, i, t)`` with a Zipf-ish skew, so the
@@ -102,3 +102,13 @@ class ShardedLoader:
     def close(self) -> None:
         self._stop.set()
 
+
+def make_batch_specs(vocab: int, seq_len: int, global_batch: int) -> dict:
+    """Meta int32 tensors for one training batch (dry-run input stand-ins)."""
+    import torch
+
+    shape = (global_batch, seq_len)
+    return {
+        "tokens": torch.empty(shape, dtype=torch.int32, device="meta"),
+        "labels": torch.empty(shape, dtype=torch.int32, device="meta"),
+    }

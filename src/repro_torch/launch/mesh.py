@@ -60,10 +60,13 @@ def _size(mesh: Mesh, axis: str) -> int:
     return mesh.size(axis_names(mesh).index(axis))
 
 
+def production_mesh_shape(*, multi_pod: bool = False) -> tuple[tuple[int, ...], tuple[str, ...]]:
+    """The production mesh's shape and axis names."""
+    return ((2, 16, 16), ("pod", "data", "model")) if multi_pod else ((16, 16), ("data", "model"))
+
+
 def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return make_mesh(shape, axes, device_type=device_type)
+    return make_mesh(*production_mesh_shape(multi_pod=multi_pod), device_type=device_type)
 
 
 def make_mesh(shape: tuple[int, ...], axes: tuple[str, ...], *, device_type: str = "cuda"):

@@ -1,7 +1,8 @@
 """Model configuration — the port's own copy of ``repro.models.config``.
 
-The fields, defaults, derived values and the smoke reduction are the
-reference's, so a config means the same model in both packages, and the
+The fields, defaults, derived values, the parameter counts that the
+roofline reads (``param_count``, ``active_param_count``), the unrolled
+variant and the smoke reduction are the reference's, so a config means the same model in both packages, and the
 port serves every one of them (see :mod:`repro_torch.models.model`).
 """
 
@@ -107,6 +108,97 @@ class ModelConfig:
     def layer_seq(self) -> tuple[tuple[str, str], ...]:
         """The full per-layer (mixer, ffn) sequence."""
         return self.prefix_pattern + self.pattern * self.repeats
+
+    # -- parameter counting (used for MODEL_FLOPS and roofline) -------------
+    def _mixer_params(self, mixer: str) -> int:
+        d = self.d_model
+        if mixer in ("attn", "attn_local"):
+            p = d * self.q_dim + 2 * d * self.kv_dim + self.q_dim * d
+            if self.qkv_bias:
+                p += self.q_dim + 2 * self.kv_dim
+            return p
+        if mixer == "mamba":
+            di = self.ssm.expand * d
+            ds = self.ssm.d_state
+            dtr = max(1, d // 16)  # dt_rank
+            return (
+                d * 2 * di  # in_proj (x, z)
+                + self.ssm.d_conv * di + di  # depthwise conv w + b
+                + di * (dtr + 2 * ds)  # x_proj → (dt, B, C)
+                + dtr * di + di  # dt_proj + bias
+                + di * ds + di  # A_log, D
+                + di * d  # out_proj
+            )
+        if mixer == "mlstm":
+            # qkv + gates (i, f per head) + out
+            return d * 3 * self.q_dim + 2 * d * self.n_heads + self.q_dim * d
+        if mixer == "slstm":
+            # recurrent cell: 4 gates × (input + recurrent) projections
+            return 8 * d * d + 4 * d
+        raise ValueError(mixer)
+
+    def _ffn_params(self, ffn: str) -> int:
+        d = self.d_model
+        if ffn == "none":
+            return 0
+        if ffn == "mlp":
+            mult = 3 if self.activation.endswith("_glu") else 2
+            return mult * d * self.d_ff
+        if ffn == "moe":
+            m = self.moe
+            mult = 3  # experts are gated MLPs
+            routed = m.n_experts * mult * d * m.d_expert
+            shared = m.n_shared * mult * d * m.d_expert
+            router = d * m.n_experts
+            return routed + shared + router
+        if ffn == "dense0":  # DeepSeek layer-0 dense MLP (d_ff stored in d_ff)
+            return 3 * self.d_model * self.d_ff
+        raise ValueError(ffn)
+
+    def param_count(self) -> int:
+        d = self.d_model
+        n = self.vocab * d  # embedding
+        if not self.tied_embeddings:
+            n += self.vocab * d  # lm head
+        layers = self.layer_seq()
+        if self.is_encoder_decoder:
+            # encoder self-attn blocks + decoder (self + cross) blocks
+            enc = self.n_enc_layers * (
+                self._mixer_params("attn") + self._ffn_params("mlp") + 2 * d
+            )
+            dec = self.n_layers * (
+                2 * self._mixer_params("attn") + self._ffn_params("mlp") + 3 * d
+            )
+            return n + enc + dec + d
+        for mixer, ffn in layers:
+            n += self._mixer_params(mixer) + self._ffn_params(ffn)
+            n += 2 * d if ffn != "none" else d  # norms
+            if self.post_block_norm:
+                n += 2 * d
+        n += d  # final norm
+        return n
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: top_k + shared experts only)."""
+        if not any(f == "moe" for _, f in self.layer_seq()):
+            return self.param_count()
+        d, m = self.d_model, self.moe
+        inactive_experts = m.n_experts - m.top_k
+        per_moe_layer = inactive_experts * 3 * d * m.d_expert
+        n_moe = sum(1 for _, f in self.layer_seq() if f == "moe")
+        return self.param_count() - n_moe * per_moe_layer
+
+
+def unrolled_variant(cfg: ModelConfig, *, ssm_chunk: int | None = None) -> ModelConfig:
+    """All layers in ``prefix_pattern``, as the reference's (whose dry-run
+    unrolls its scanned stack so that ``cost_analysis`` sees every layer).
+    The port keeps one param dict a layer and walks them in a Python loop, so
+    the same model results: only ``prefix_pattern``, ``pattern`` and, when
+    given, the SSM chunk change."""
+    kw = dict(prefix_pattern=cfg.layer_seq(), pattern=())
+    if ssm_chunk is not None:
+        kw["ssm"] = dataclasses.replace(cfg.ssm, chunk=ssm_chunk)
+    return dataclasses.replace(cfg, **kw)
 
 
 def smoke_variant(cfg: ModelConfig) -> ModelConfig:

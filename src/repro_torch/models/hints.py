@@ -22,6 +22,7 @@ tensor and converts nothing silently.
 from __future__ import annotations
 
 import math
+from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Any, Callable
 
@@ -131,12 +132,28 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def pin(t: torch.Tensor) -> torch.Tensor:
     """A DTensor ``t`` as it is, with a backward that brings its gradient to
-    ``t``'s placements; a plain tensor as it is.  After a reshape that
-    merges dims, this keeps the reshape's backward (a split) off a gradient
-    sharded in a way that the split cannot carry."""
+    ``t``'s placements, its local shard contiguous; a plain tensor as it
+    is.  After a reshape that merges dims, this keeps the reshape's backward
+    (a split, and a view of the local shard) off a gradient sharded, or laid
+    out, in a way that the split cannot carry."""
     if not isinstance(t, DTensor):
         return t
-    return t.redistribute(t.device_mesh, t.placements)
+    return _ContiguousGrad.apply(t).redistribute(t.device_mesh, t.placements)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """Identity forward; the backward makes the gradient contiguous."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if grad.to_local().is_contiguous():
+            return grad
+        # a DTensor's contiguous() reads its global strides, not its shard's
+        return grad.clone(memory_format=torch.contiguous_format)
 
 
 class _SumGrad(torch.autograd.Function):
@@ -168,6 +185,27 @@ class _ScaleGrad(torch.autograd.Function):
         return None, grad * ctx.s
 
 
+def _run_body(body: Callable, mesh, in_placements, args):
+    return body(*args)
+
+
+_BODY_RUNNER = _run_body
+
+
+@contextmanager
+def body_runner(run: Callable):
+    """Run every :func:`shard_map` body inside the block as ``run(body, mesh,
+    in_placements, args)`` instead of ``body(*args)``: how a counter of the
+    work on each rank (``roofline.counting``) learns which mesh dims a
+    body's work is repeated over."""
+    global _BODY_RUNNER
+    prev, _BODY_RUNNER = _BODY_RUNNER, run
+    try:
+        yield
+    finally:
+        _BODY_RUNNER = prev
+
+
 def shard_map(body: Callable, mesh, in_placements, out_placements) -> Callable:
     """``body`` on each rank's local shards, as ``jax.shard_map`` with
     ``check_vma=False`` runs it, on DTensor's ``local_map``.
@@ -195,7 +233,7 @@ def shard_map(body: Callable, mesh, in_placements, out_placements) -> Callable:
 
     def local(*args):
         args = [_SumGrad.apply(g, a) if g else a for a, g in zip(args, in_groups)]
-        outs = body(*args)
+        outs = _BODY_RUNNER(body, mesh, in_placements, args)
         outs = (outs,) if single else outs
         outs = tuple(_ScaleGrad.apply(s, o) if s != 1.0 else o for o, s in zip(outs, out_scale))
         return outs[0] if single else outs

@@ -372,7 +372,9 @@ def attention_block(
     The cache is written in place (the reference returns a fresh cache from
     ``dynamic_update_slice``): rows ``len .. len+L`` of ``cache["k"]`` and
     ``cache["v"]`` are overwritten, and the returned cache holds the same
-    tensors with ``len + L``.  ``len`` stays on the device throughout.
+    tensors with ``len + L`` (new ones for a DTensor cache sharded along the
+    sequence, see :func:`_cache_write`).  ``len`` stays on the device
+    throughout.
 
     ``cross_kv = (k, v)``, each ``[B, S, Hkv, d]``: cross-attention over
     them, as the reference: RoPE on q only (when ``use_rope``), no mask
@@ -441,20 +443,39 @@ def attention_block(
     else:
         idx = cache["len"]  # int32 scalar on the device
         rows = idx + torch.arange(l, device=x.device)
-        cache["k"].index_copy_(1, rows, k)
-        cache["v"].index_copy_(1, rows, v)
+        ck, cv = _cache_write(cache["k"], rows, k), _cache_write(cache["v"], rows, v)
         valid = idx + l
         if l == 1 and window == 0 and softcap == 0.0 and _use_kernel(q):
             # One row at q_offset = len: causal-at-len and kv_valid = len + 1
             # are the same mask, s < len + 1.
-            out = kops.decode_attention(q, cache["k"], cache["v"], valid)
+            out = kops.decode_attention(q, ck, cv, valid)
         else:
             out = sdpa(
-                q, cache["k"], cache["v"], causal=causal, window=window,
+                q, ck, cv, causal=causal, window=window,
                 softcap=softcap, q_offset=idx, kv_valid=valid,
             )
-        new_cache = {"k": cache["k"], "v": cache["v"], "len": valid}
+        new_cache = {"k": ck, "v": cv, "len": valid}
     return linear(p["o"], pin(out.reshape(b, l, cfg.q_dim))), new_cache
+
+
+def _cache_write(buf: torch.Tensor, rows: torch.Tensor, new: torch.Tensor) -> torch.Tensor:
+    """``buf`` with ``new`` written at ``rows`` of dim 1, in place; returns
+    the buffer that holds the result.  On a DTensor the write runs on each
+    rank's shard, ``new`` placed as the buffer: DTensor's in-place
+    ``index_copy_`` re-places a buffer without moving its data (torch 2.13)
+    when its placements differ from ``new``'s.  A buffer sharded along dim 1
+    (a sequence-sharded cache) is gathered along it first and placed back
+    after: a new DTensor."""
+    if not isinstance(buf, DTensor):
+        return buf.index_copy_(1, rows, new)
+    full = unshard(buf, [1])
+    pl = full.placements
+
+    def write(b, n):
+        return b.index_copy_(1, rows, n)
+
+    out = shard_map(write, full.device_mesh, (pl, pl), pl)(full, new)
+    return out if full is buf else out.redistribute(buf.device_mesh, buf.placements)
 
 
 def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device) -> Params:

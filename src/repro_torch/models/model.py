@@ -68,7 +68,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch._bridge import resolve_device
 
 from .config import ModelConfig
-from .hints import constrain, get_hints, matmul, replicated_like
+from .hints import DTensor, constrain, get_hints, matmul, replicated_like, shard_map
 from .layers import (
     apply_mlp,
     apply_norm,
@@ -287,6 +287,31 @@ def _apply_stack(
     return x, new_layers, aux_total
 
 
+def _embed_on_shards(emb: DTensor, tokens: DTensor) -> DTensor:
+    """The embedding lookup on DTensors, vocab-parallel as Megatron's: each
+    rank looks its tokens up in its own rows of the table (zeros for a token
+    outside them), and the output is a partial sum over the mesh dims that
+    shard the vocab.  On torch 2.11, DTensor's rule for the lookup's
+    backward (``index_add``) paired the whole index with batch-sharded rows
+    when the table and the tokens are sharded over different mesh dims."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    mesh = emb.device_mesh
+    e_pl = tuple(p if p.is_shard(0) else Replicate() for p in emb.placements)
+    t_pl = tuple(p if p.is_shard(0) and not e.is_shard(0) else Replicate() for e, p in zip(e_pl, tokens.placements))
+    out_pl = tuple(Partial() if e.is_shard(0) else t for e, t in zip(e_pl, t_pl))
+    _, (off, _) = compute_local_shape_and_global_offset(emb.shape, mesh, e_pl)
+
+    def lookup(e, t):
+        local = t.long() - off
+        ok = (local >= 0) & (local < e.shape[0])
+        rows = e.index_select(0, torch.where(ok, local, 0).reshape(-1)).reshape(*t.shape, e.shape[1])
+        return rows * ok[..., None].to(rows.dtype)
+
+    return shard_map(lookup, mesh, (e_pl, t_pl), out_pl)(emb, tokens)
+
+
 @dataclass(frozen=True)
 class Model:
     """``Model(cfg, device)``; params are plain dicts of tensors on ``device``."""
@@ -330,7 +355,10 @@ class Model:
     # -- embedding / head / frontends ------------------------------------------
     def _embed(self, params: Params, tokens: torch.Tensor) -> torch.Tensor:
         emb = params["embed"]
-        x = emb.index_select(0, tokens.reshape(-1)).reshape(*tokens.shape, emb.shape[1])
+        if isinstance(emb, DTensor):
+            x = _embed_on_shards(emb, tokens)
+        else:
+            x = emb.index_select(0, tokens.reshape(-1)).reshape(*tokens.shape, emb.shape[1])
         if self.cfg.embed_scale:
             x = x * replicated_like(torch.tensor(math.sqrt(self.cfg.d_model), dtype=x.dtype), x)
         return x

@@ -51,7 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from .config import ModelConfig
-from .hints import pin, replicated_like, unshard
+from .hints import DTensor, pin, replicated_like, shard_map, unshard
 from .layers import init_linear, linear
 
 Params = dict[str, Any]
@@ -102,7 +102,15 @@ class Routing(NamedTuple):
 
 
 def top_k(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """``jax.lax.top_k`` over the last axis: descending, ties to the lower index."""
+    """``jax.lax.top_k`` over the last axis: descending, ties to the lower
+    index.  On DTensors, on each rank's rows (every other dim gathered): the
+    backward of ``sort`` scatters into a plain tensor, which DTensor refuses
+    on torch 2.11."""
+    if isinstance(probs, DTensor):
+        from torch.distributed.tensor import Replicate
+
+        pl = tuple(p if p.is_shard(0) else Replicate() for p in probs.placements)
+        return shard_map(lambda p: top_k(p, k), probs.device_mesh, (pl,), (pl, pl))(probs)
     vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
     return vals[..., :k], idx[..., :k]
 
@@ -136,6 +144,20 @@ def aux_loss(cfg: ModelConfig, r: Routing) -> torch.Tensor:
     return m.n_experts * torch.sum(density / m.top_k * mean_prob)
 
 
+def _on_replicas(fn, *ts: torch.Tensor) -> torch.Tensor:
+    """``fn(*ts)``; on DTensors, on every rank's whole copy of each (gathered
+    first), the result replicated.  The dispatch's scatter and gather go
+    there: DTensor has no rule for ``index_add_`` on torch 2.11, and on 2.13
+    its rule re-places a replicated buffer without moving its data when the
+    rows are sharded."""
+    if not isinstance(ts[0], DTensor):
+        return fn(*ts)
+    from torch.distributed.tensor import Replicate
+
+    rep = (Replicate(),) * ts[0].device_mesh.ndim
+    return shard_map(fn, ts[0].device_mesh, (rep,) * len(ts), rep)(*ts)
+
+
 def apply_moe(cfg: ModelConfig, p: Params, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """x: [B, L, d] → (y [B, L, d], aux fp32 scalar)."""
     m = cfg.moe
@@ -153,16 +175,14 @@ def apply_moe(cfg: ModelConfig, p: Params, x: torch.Tensor) -> tuple[torch.Tenso
     xk = xf[:, None, :].expand(t, k, d).reshape(t * k, d)  # choice-major: row t·k + j is token t
     contrib = torch.where(r.keep[:, None], xk, 0.0)
     buf = replicated_like(torch.zeros((m.n_experts * cap, d), dtype=x.dtype, device=x.device), x)
-    # On DTensors, index_add_'s rule re-places a replicated buffer without
-    # moving its data when the rows are sharded: scatter replicated rows.
-    buf = buf.index_add_(0, unshard(rows), unshard(contrib)).view(m.n_experts, cap, d)
+    buf = _on_replicas(lambda b, i, c: b.index_add(0, i, c), buf, rows, contrib).view(m.n_experts, cap, d)
 
     # Batched expert gated MLP over the expert axis.
     h = F.silu(torch.bmm(buf, p["gate"])) * torch.bmm(buf, p["up"])
     out_buf = torch.bmm(h, p["down"]).view(m.n_experts * cap, d)  # [E·C, d]
 
     # Gather back and combine.
-    fetched = out_buf.index_select(0, rows)  # [T·k, d]
+    fetched = _on_replicas(lambda o, i: o.index_select(0, i), out_buf, rows)  # [T·k, d]
     fetched = torch.where(r.keep[:, None], fetched, 0.0)
     yk = fetched.view(t, k, d) * r.weights[..., None].to(x.dtype)
     y = torch.sum(yk, dim=1)
@@ -271,7 +291,7 @@ def _local_moe_body(cfg: ModelConfig, mesh, tp_axis: str, tp_size: int, dp_axes,
 def apply_moe_sharded(cfg: ModelConfig, p: Params, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Expert-local MoE dispatch (requires installed ShardHints; x and the
     params are DTensors on the hints' mesh)."""
-    from .hints import get_hints, placements, shard_map
+    from .hints import get_hints, placements
 
     h = get_hints()
     if h is None:

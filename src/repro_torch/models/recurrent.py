@@ -30,13 +30,15 @@ are static and no op waits on the device.
 from __future__ import annotations
 
 import math
+from contextlib import contextmanager
 from typing import Any, NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from .config import ModelConfig
-from .layers import init_linear, linear
+from .hints import DTensor, pin, replicated_like, shard_map
+from .layers import init_linear, linear, split_heads
 
 Params = dict[str, Any]
 
@@ -44,6 +46,11 @@ Params = dict[str, Any]
 def _softplus(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.softplus``: ``logaddexp(x, 0)``, exact at every ``x``."""
     return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def _placed_like(state: NamedTuple, x: torch.Tensor) -> NamedTuple:
+    """A fresh state, replicated on ``x``'s mesh when ``x`` is a DTensor."""
+    return type(state)(*(replicated_like(t, x) for t in state))
 
 
 # ---------------------------------------------------------------------------
@@ -131,7 +138,7 @@ def mamba_mix(
 
     # Depthwise causal conv over time (kernel dc), carrying dc-1 inputs.
     if state is None:
-        conv_carry = torch.zeros((b, dc - 1, di), dtype=u.dtype, device=u.device)
+        conv_carry = replicated_like(torch.zeros((b, dc - 1, di), dtype=u.dtype, device=u.device), u)
     else:
         conv_carry = state.conv
     u_ext = torch.cat([conv_carry, u], dim=1)  # [B, L+dc-1, di]
@@ -150,7 +157,10 @@ def mamba_mix(
     abar_log = dt[..., None] * a[None, None]  # [B, L, di, ds]  (≤ 0)
     bu = (dt * u.to(f32))[..., None] * bmat.to(f32)[:, :, None, :]  # [B, L, di, ds]
 
-    h0 = torch.zeros((b, di, ds), dtype=f32, device=x.device) if state is None else state.ssm.to(f32)
+    if state is None:
+        h0 = replicated_like(torch.zeros((b, di, ds), dtype=f32, device=x.device), x)
+    else:
+        h0 = state.ssm.to(f32)
     chunk = min(cfg.ssm.chunk, l)
     ys = []
     for s in range(0, l, chunk):
@@ -228,7 +238,7 @@ def _mlstm_chunk(
     g_s = g.permute(0, 2, 1)
     m_t = m.permute(0, 2, 1)
     w_log = cum_t[:, :, :, None] + g_s[:, :, None, :] - m_t[:, :, :, None]
-    causal = torch.tril(torch.ones((c, c), dtype=torch.bool, device=q.device))
+    causal = replicated_like(torch.tril(torch.ones((c, c), dtype=torch.bool, device=q.device)), w_log)
     # Masked before the exp, not after it as the reference does: the same
     # forward values, but above the diagonal w_log grows with the distance
     # (cum falls by ~0.7 a token), exp overflows to inf past ~130 tokens, and
@@ -258,6 +268,33 @@ def _mlstm_chunk(
     return y, MLSTMState(c=c_new, n=n_new, m=m_carry)
 
 
+def _logsigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``F.logsigmoid``; on a DTensor, on each rank's shards (DTensor has no
+    rule for its backward)."""
+    if not isinstance(x, DTensor):
+        return F.logsigmoid(x)
+    from torch.distributed.tensor import Replicate
+
+    pl = tuple(Replicate() if p.is_partial() else p for p in x.placements)
+    return shard_map(F.logsigmoid, x.device_mesh, (pl,), pl)(x)
+
+
+def _mlstm_chunk_on_batch_shards(q, k, v, li, lf, state: MLSTMState) -> tuple[torch.Tensor, MLSTMState]:
+    """:func:`_mlstm_chunk` on DTensors, on each rank's batch rows (every
+    other dim gathered): the backward of ``cummax`` makes a plain tensor to
+    scatter into, which DTensor refuses."""
+    from torch.distributed.tensor import Replicate
+
+    pl = tuple(p if p.is_shard(0) else Replicate() for p in q.placements)
+
+    def body(q, k, v, li, lf, c, n, m):
+        y, st = _mlstm_chunk(q, k, v, li, lf, MLSTMState(c, n, m))
+        return (y, *st)
+
+    y, *st = shard_map(body, q.device_mesh, (pl,) * 8, (pl,) * 4)(q, k, v, li, lf, *state)
+    return y, MLSTMState(*st)
+
+
 def mlstm_mix(
     cfg: ModelConfig,
     p: Params,
@@ -267,22 +304,23 @@ def mlstm_mix(
     b, l, d = x.shape
     h, dh = cfg.n_heads, cfg.head_dim
     f32 = torch.float32
-    q = linear(p["q"], x).reshape(b, l, h, dh) / math.sqrt(dh)
-    k = linear(p["k"], x).reshape(b, l, h, dh)
-    v = linear(p["v"], x).reshape(b, l, h, dh)
+    q = split_heads(linear(p["q"], x), h, dh) / math.sqrt(dh)
+    k = split_heads(linear(p["k"], x), h, dh)
+    v = split_heads(linear(p["v"], x), h, dh)
     li = linear(p["i_gate"], x.to(f32))  # [B, L, H] log-space
-    lf = F.logsigmoid(linear(p["f_gate"], x.to(f32)))
+    lf = _logsigmoid(linear(p["f_gate"], x.to(f32)))
 
     if state is None:
-        state = init_mlstm_state(cfg, b, x.device)
+        state = _placed_like(init_mlstm_state(cfg, b, x.device), x)
     chunk = min(cfg.ssm.chunk, l)
+    chunk_fn = _mlstm_chunk_on_batch_shards if isinstance(q, DTensor) else _mlstm_chunk
     ys = []
     for s in range(0, l, chunk):
         e = min(s + chunk, l)
-        y, state = _mlstm_chunk(q[:, s:e], k[:, s:e], v[:, s:e], li[:, s:e], lf[:, s:e], state)
+        y, state = chunk_fn(q[:, s:e], k[:, s:e], v[:, s:e], li[:, s:e], lf[:, s:e], state)
         ys.append(y)
     y = torch.cat(ys, dim=1).to(x.dtype).reshape(b, l, h * dh)
-    return linear(p["o"], y), state
+    return linear(p["o"], pin(y)), state
 
 
 def init_mlstm_state(cfg: ModelConfig, batch: int, device) -> MLSTMState:
@@ -309,6 +347,26 @@ def init_slstm(gen: torch.Generator, cfg: ModelConfig, dtype) -> Params:
     return gates
 
 
+_SLSTM_STEPS: int | None = None
+
+
+@contextmanager
+def slstm_step_limit(n: int):
+    """Inside the block, :func:`slstm_mix` runs at most ``n`` steps of its
+    loop and repeats the last step's ``h`` for the rest: shapes and every
+    other op are as in a full run, and from the second step on each step
+    costs what any other does.  The dry-run counts a cell at 2 and at 3
+    steps and scales the difference, one step's forward and backward, by
+    the step count (``launch.dryrun``), instead of dispatching thousands of
+    steps."""
+    global _SLSTM_STEPS
+    prev, _SLSTM_STEPS = _SLSTM_STEPS, n
+    try:
+        yield
+    finally:
+        _SLSTM_STEPS = prev
+
+
 def slstm_mix(
     cfg: ModelConfig,
     p: Params,
@@ -319,7 +377,7 @@ def slstm_mix(
     b, l, d = x.shape
     f32 = torch.float32
     if state is None:
-        state = init_slstm_state(cfg, b, x.device)
+        state = _placed_like(init_slstm_state(cfg, b, x.device), x)
 
     # Precompute input contributions for all gates: [B, L, d] each.
     gate_names = ("g_i", "g_f", "g_z", "g_o")
@@ -328,7 +386,8 @@ def slstm_mix(
 
     c, n, h, m = state
     hs = []
-    for t in range(l):
+    steps = l if _SLSTM_STEPS is None else min(l, _SLSTM_STEPS)
+    for t in range(steps):
         it = pre["g_i"][:, t] + h @ rw["g_i"]
         ft = pre["g_f"][:, t] + h @ rw["g_f"]
         zt = torch.tanh(pre["g_z"][:, t] + h @ rw["g_z"])
@@ -341,6 +400,7 @@ def slstm_mix(
         h = ot * c / torch.clamp_min(torch.abs(n), 1.0)
         m = m_new
         hs.append(h)
+    hs += [h] * (l - steps)  # under slstm_step_limit only
     y = torch.stack(hs, dim=1).to(x.dtype)  # [B, L, d]
     return y, SLSTMState(c, n, h, m)
 

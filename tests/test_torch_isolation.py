@@ -22,6 +22,9 @@ bad = sorted(n for n in sys.modules
 print(len(names), bad)
 print(" ".join(names))
 assert not bad, bad
+import os, torch.distributed as dist
+assert not dist.is_initialized(), "an import started a process group"
+assert "XLA_FLAGS" not in os.environ, "an import set XLA_FLAGS"
 """
 
 # The training slice's modules, which the walk above must reach.
@@ -57,6 +60,11 @@ INPROCESS = ("repro_torch.workflow.runtime", "repro_torch.exec.central", "repro_
 DISTRIBUTION = ("repro_torch.launch.mesh", "repro_torch.launch.sharding", "repro_torch.optim.zero",
                 "repro_torch.models.hints")
 
+# The dry-run and roofline slice's modules (A8), which it must reach too.
+DRYRUN = ("repro_torch.launch.dryrun", "repro_torch.roofline", "repro_torch.roofline.analysis",
+          "repro_torch.roofline.analytic", "repro_torch.roofline.collectives", "repro_torch.roofline.counting",
+          "repro_torch.roofline.report")
+
 
 def test_port_imports_no_jax_and_no_repro():
     out = subprocess.run(
@@ -68,7 +76,7 @@ def test_port_imports_no_jax_and_no_repro():
     n_modules = int(out.stdout.split()[0])
     assert n_modules >= 15  # every module of the port was imported
     imported = set(out.stdout.splitlines()[1].split())
-    walked = set(TRAINING + MOE + RECURRENT + FAMILIES + INPROCESS + DISTRIBUTION)
+    walked = set(TRAINING + MOE + RECURRENT + FAMILIES + INPROCESS + DISTRIBUTION + DRYRUN)
     assert walked <= imported, sorted(walked - imported)
 
 
