@@ -219,6 +219,34 @@ Phases, each of which exits nonzero on failure:
    on the card must equal the dry-run's count of the same cell on a 1 x 1
    fake mesh of meta tensors.  The child's failure fails the run.
 
+16. The threaded backend on the card, in a fifth child process
+   (``chip_smoke.py --threaded OUT``) started after phase 15's: SWIRL plans
+   lowered with ``lower("threaded", timeout_s=60)``, one host thread per
+   location, payloads fp32 tensors on ``cuda`` and phase 7's bodies.  (a)
+   P-ref and P-full: each store held against the ``torch`` backend's
+   interpreted store of the same feed (rtol 1e-5, atol 1e-6), each rmsnorm
+   step against its plain version (fp32 2e-5), and, from launch counts of
+   0, exactly 3 rmsnorm launches a run.  (b) P-split: the same pipeline
+   re-placed with odd steps on l0 and even ones on l1, so that every datum
+   crosses a thread; the same checks, one message a COMM, and each datum on
+   the receiving location the very tensor its step returned.  (c) G on its
+   9 location threads, equal to the ``torch`` backend's store, and bit for
+   bit the same with the channels dropping 10 % of the messages (seed 0),
+   whose drops and resends must both be counted; the card's busy share of
+   a run.  (d) S-serve: the reference's serving workload (ingest -> work_a
+   || work_b -> merge on three locations; rmsnorm, rmsnorm, phase 7's mix,
+   a sum) on [512, 3072] fp32 requests, 100 instances per instance through
+   the whole pipeline and through ``run_many(max_concurrent=8)``: stores
+   equal, exactly 200 rmsnorm launches in ``run_many``.  (e) P-full and G
+   traced: stores equal to the untraced ones, span schemas equal to the
+   CPU's, and at P-full the exec spans at least 0.9x an untraced run's
+   device time.  (f) A step that raises after a launch fails its run with
+   the reference's ``RuntimeError("location l0 failed: ...")``, and the next
+   run of the same executable succeeds.  Prints ms a run beside ``torch``
+   interpreted, the busy share, instances/s, traced / untraced, the threads
+   a run starts (one per location and per ``Par`` branch) and what a host
+   thread costs to start and join.  The child's failure fails the run.
+
 ``python3 chip_smoke.py --rmsnorm-times ROOT`` only times the rmsnorm
 wrapper of the checkout at ROOT (see :func:`rmsnorm_times`), and
 ``--dataplane-times ROOT`` only its untraced data plane (see
@@ -228,7 +256,7 @@ checkouts at A and B in alternating pairs (see :func:`dataplane_compare`).
 The line before the last is the kernels' JSON record (each kernel's
 launches on each path under ``launches_by_path``), the data plane's,
 the traced phase's, training's, the MoE phase's, the recurrent phase's,
-the families', phase 13's, phase 14's and phase 15's numbers above the card's name; the last line is
+the families', phase 13's, phase 14's, phase 15's and phase 16's numbers above the card's name; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 rest of the repository beside it, it exits nonzero and prints no result.
 """
@@ -246,6 +274,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -468,6 +497,16 @@ DRY_LLAMA_TRAIN, DRY_LLAMA_TOL, DRY_OPT_TOL = 3.0368e16, 0.15, 0.01
 # R_BATCH x R_SEQ; the measured step may not fall under R_FLOOR x its bound.
 R_TRAIN_LAYERS, R_BATCH, R_SEQ, R_FLOOR = 2, 4, 512, 0.95
 R_DECODE_ROWS = 160  # phase 4's cache: a 128-token prompt and 32 generated
+
+# Phase 16: the threaded backend on the card.  Each plan is lowered with the
+# reference benchmark's timeout_s; P-split puts phase 7's odd steps on l0 and
+# its even ones on l1, so that every datum crosses a thread; G reruns with
+# the channels dropping G_DROP of the messages (seeded); S-serve is the
+# reference's serving workload (benchmarks/run.py, _serve_workload) with
+# card-sized bodies on a [512, 3072] fp32 datum, SERVE_INSTANCES instances
+# per instance and through run_many(max_concurrent=SERVE_LANES).
+THREADED_TIMEOUT_S, G_DROP = 60.0, 0.1
+SERVE_INSTANCES, SERVE_LANES, SERVE_SHAPE = 100, 8, (512, 3072)
 
 # The leaves that a bf16 model keeps in fp32 (the mLSTM's input and forget
 # gates, the sLSTM's gate biases): AdamW must leave them fp32.
@@ -3457,6 +3496,295 @@ def phase_dryrun(torch, smi: str, sku: str) -> dict:
     return {"cells": cells, "R-decode": r_decode(torch, smi, card), "R-train": r_train(torch, smi, card)}
 
 
+# -- phase 16: the threaded backend, one host thread per location ---------------------
+
+
+def split_placement(n_steps: int) -> dict:
+    """P-split: phase 7's odd steps on l0, its even ones on l1."""
+    return {f"s{k}": ("l0",) if k % 2 else ("l1",) for k in range(1, n_steps + 1)}
+
+
+def serve_setup(torch, device: str) -> tuple:
+    """S-serve: the reference's serving workload (ingest -> work_a || work_b ->
+    merge on l0, l1, l2) with bodies on ``device``: ingest and work_a are
+    rmsnorm, work_b is phase 7's mix and merge sums the two (it outputs no
+    datum, as the reference's merge); request i's datum is SERVE_SHAPE fp32
+    from seed i.  Returns the instance, the bodies and the inputs."""
+    from repro_torch.core.graph import DistributedWorkflowInstance, make_workflow
+    from repro_torch.kernels import ops as kops
+
+    wf = make_workflow(
+        ["ingest", "work_a", "work_b", "merge"], ["p_seed", "p_ingest", "p_a", "p_b"],
+        [("p_seed", "ingest"), ("ingest", "p_ingest"), ("p_ingest", "work_a"), ("p_ingest", "work_b"),
+         ("work_a", "p_a"), ("work_b", "p_b"), ("p_a", "merge"), ("p_b", "merge")])
+    inst = DistributedWorkflowInstance(
+        workflow=wf, locations=frozenset({"l0", "l1", "l2"}),
+        mapping={"ingest": ("l0",), "work_a": ("l1",), "work_b": ("l2",), "merge": ("l0",)},
+        data=frozenset({"d_seed", "d_ingest", "d_a", "d_b"}),
+        placement={"d_seed": "p_seed", "d_ingest": "p_ingest", "d_a": "p_a", "d_b": "p_b"},
+        initial_data={"l0": frozenset({"d_seed"})})
+    w = torch.ones(SERVE_SHAPE[1], device=device)
+
+    def merge(i):
+        i["d_a"] + i["d_b"]  # noqa: B018 — the sink's work on the card; no datum leaves it
+        return {}
+
+    fns = {
+        "ingest": lambda i: {"d_ingest": kops.rmsnorm(i["d_seed"], w)},
+        "work_a": lambda i: {"d_a": kops.rmsnorm(i["d_ingest"], w)},
+        "work_b": lambda i: {"d_b": 0.5 * i["d_ingest"] + 0.1 * torch.tanh(i["d_ingest"])},
+        "merge": merge,
+    }
+    inputs = [{("l0", "d_seed"): torch.from_numpy(
+        np.random.default_rng(i).standard_normal(SERVE_SHAPE).astype(np.float32)).to(device)}
+        for i in range(SERVE_INSTANCES)]
+    return inst, fns, inputs
+
+
+def stores_equal(torch, name: str, got: dict, want: dict) -> None:
+    """Fails unless two stores hold the same data, tensors equal bit for bit."""
+    if {loc: sorted(d) for loc, d in got.items()} != {loc: sorted(d) for loc, d in want.items()}:
+        fail(f"{name}: the stores hold different data")
+    for loc in want:
+        for d, w in want[loc].items():
+            g = got[loc][d]
+            if not (isinstance(g, torch.Tensor) and g.shape == w.shape and torch.equal(g, w)):
+                fail(f"{name}: store {loc}/{d} differs")
+
+
+def on_device(torch, name: str, data: dict, device: str) -> None:
+    """Fails unless every payload of a store is a tensor on ``device``."""
+    for loc, ds in data.items():
+        for d, v in ds.items():
+            if not (isinstance(v, torch.Tensor) and v.device.type == device):
+                fail(f"{name}: {loc}/{d} is not a tensor on {device}")
+
+
+def threaded_cell(torch, label: str, plan, fns, feed, device: str, smi: str, **opts) -> tuple:
+    """One cell on ``threaded`` beside the ``torch`` backend interpreted: the
+    stores must agree (DP_RTOL / DP_ATOL) and hold tensors on the device;
+    ms a run of each, in turns (:func:`dp_time_pair`).  Returns the numbers,
+    the ``threaded`` executable and its last result."""
+    platform = {} if device == "cuda" else {"platform": "cpu"}
+    thr = plan.lower("threaded", timeout_s=THREADED_TIMEOUT_S, **opts).compile(fns)
+    ref_exe = plan.lower("torch", **platform, **opts).compile(fns)
+    t_t, res_t, t_r, res_r = dp_time_pair(torch, thr, ref_exe, feed)
+    dp_stores_close(torch, f"{label} threaded vs torch", res_t.data, res_r.data)
+    on_device(torch, f"{label} threaded", res_t.data, device)
+    if res_t.backend != "threaded":
+        fail(f"{label}: ran on {res_t.backend}")
+    out = {"threaded_ms": t_t, "torch_ms": t_r, "threaded_min_ms": min(t_t), "torch_min_ms": min(t_r),
+           "threaded_median_ms": statistics.median(t_t), "torch_median_ms": statistics.median(t_r),
+           "threaded_over_torch": min(t_t) / min(t_r), "transport": res_t.stats}
+    print(f"[16] {label}: threaded {min(t_t):.4f} ms a run (median {statistics.median(t_t):.4f}), torch "
+          f"interpreted {min(t_r):.4f} ms (median {statistics.median(t_r):.4f}), threaded/torch "
+          f"{out['threaded_over_torch']:.3f}; transport {res_t.stats}; stores agree; {smi}")
+    return out, thr, res_t
+
+
+def phase_threaded(torch, smi: str, sku: str, device: str = "cuda") -> dict:
+    """Phase 16: SWIRL plans on the ``threaded`` backend, one host thread per
+    location, array payloads as tensors on ``device``, each held against the
+    ``torch`` backend's interpreted store (see the module doc).  Returns the
+    numbers it prints and the kernels' launches on each path."""
+    from repro_torch import swirl
+    from repro_torch.core.graph import DistributedWorkflowInstance, make_workflow
+    from repro_torch.core.translate import genomes_1000
+    from repro_torch.exec.program import SendOp
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import ref
+    from repro_torch.workflow.threaded import total_par_branches
+
+    t_phase = time.monotonic()
+    out = {"device": smi, "launches": {}, "threads_a_run": {}}
+    mix = lambda v: 0.5 * v + 0.1 * torch.tanh(v)  # noqa: E731
+    plan = dp_pipeline(swirl, DistributedWorkflowInstance, make_workflow)
+
+    # (a) P-ref and P-full, (b) P-split.
+    for label, shape in DP_SHAPES.items():
+        w = torch.ones(shape[1], device=device)
+        fns = dp_fns(lambda v, w=w: kops.rmsnorm(v, w), mix)
+        x = torch.from_numpy(np.random.default_rng(7).standard_normal(shape).astype(np.float32)).to(device)
+        feed = {("l0", "d0"): x}
+        cells = ((label, {}), (f"{label}/split", {"placement": split_placement(DP_STEPS)}))
+        for name, opts in cells:
+            cell, exe, res = threaded_cell(torch, name, plan, fns, feed, device, smi, **opts)
+            by_loc = exe.program.program.by_location
+            out["threads_a_run"][name] = len(by_loc) + total_par_branches(by_loc)
+            store = {}
+            for loc in res.data:
+                store.update(res.data[loc])
+            for k in (0, 4, 8):  # the rmsnorm steps, against the plain version
+                check_close(f"{name} threaded d{k + 1} = rmsnorm(d{k})", store[f"d{k + 1}"],
+                            ref.rmsnorm_ref(store[f"d{k}"], w), 2e-5)
+            torch.cuda.synchronize()
+            kops.reset_launch_counts()
+            again = exe.run(initial_payloads=dict(feed))
+            torch.cuda.synchronize()
+            counts = kops.launch_counts()
+            if counts["rmsnorm"] != DP_NORMS or counts["flash_attention"] or counts["decode_attention"]:
+                fail(f"{name}: a threaded run launched {counts}, not rmsnorm {DP_NORMS} alone")
+            dp_stores_close(torch, f"{name} a counted run", again.data, res.data)
+            cell["launches"] = out["launches"][name] = counts
+            if opts:
+                # Every datum a step makes on one location and the other
+                # reads crosses a thread as the very CUDA tensor: no copy.
+                sends = [op for lp in exe.program.program.programs for op in lp.ops if isinstance(op, SendOp)]
+                if not sends or again.stats["sent"] != len(sends):
+                    fail(f"{name}: {again.stats['sent']} messages for {len(sends)} sends")
+                for op in sends:
+                    if again.data[op.dst][op.data] is not again.data[op.src][op.data]:
+                        fail(f"{name}: {op.data} reached {op.dst} as another object than {op.src}'s")
+                cell["sends"] = len(sends)
+                print(f"[16] {name}: {len(sends)} tensors crossed from one location thread to the other, "
+                      f"each the very object its step returned; rmsnorm launches {counts}")
+            out[name] = cell
+
+    # (c) G: 1000 Genomes on 9 location threads, with and without dropped messages.
+    inst = genomes_1000(n=4, m=3, a=2, b=2, c=2)
+    init, gfns = g_setup(torch, inst, device)
+    gplan = swirl.trace(inst).optimize(G_RULES)
+    cell, gexe, gres = threaded_cell(torch, "G", gplan, gfns, init, device, smi)
+    out["threads_a_run"]["G"] = len(gres.data) + total_par_branches(gexe.program.program.by_location)
+    locs = len(gres.data)
+    n_comms = sum(isinstance(op, SendOp) for lp in gexe.program.program.programs for op in lp.ops)
+    lossy = gplan.lower("threaded", timeout_s=THREADED_TIMEOUT_S, drop_prob=G_DROP, seed=0).compile(gfns).run(
+        initial_payloads=dict(init))
+    stores_equal(torch, "G with dropped messages", lossy.data, gres.data)
+    resends = lossy.stats["sent"] - n_comms
+    if lossy.stats["dropped"] < 1 or resends < 1:
+        fail(f"G at drop_prob {G_DROP}: transport {lossy.stats} dropped or resent nothing")
+    wall = statistics.median(cell["threaded_ms"])
+    dev_ms = device_ms_and_copies(torch, lambda: gexe.run(initial_payloads=dict(init)))[0]
+    cell |= {"locations": locs, "comms": n_comms, "lossy_transport": lossy.stats, "resends": resends,
+             "device_ms": dev_ms, "busy_share": dev_ms / wall}
+    out["G"] = cell
+    print(f"[16] G genomes_1000(4, 3, 2, 2, 2): {locs} location threads, {n_comms} comms; at drop_prob "
+          f"{G_DROP} (seed 0) the store is the same, transport {lossy.stats}, {resends} resends; one run's "
+          f"device time {dev_ms:.4f} ms of a {wall:.4f} ms median run, the card busy {dev_ms / wall:.1%}; {smi}")
+
+    # (d) S-serve: per instance through the whole pipeline, and run_many.
+    sinst, sfns, inputs = serve_setup(torch, device)
+    per = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for payloads in inputs:
+        per.append(swirl.trace(sinst).optimize().lower("threaded", timeout_s=THREADED_TIMEOUT_S).compile(sfns)
+                   .run(initial_payloads=payloads))
+    torch.cuda.synchronize()
+    t_per = time.perf_counter() - t0
+    sexe = swirl.trace(sinst).optimize().lower("threaded", timeout_s=THREADED_TIMEOUT_S).compile(sfns)
+    sexe.run_many(inputs[:SERVE_LANES], max_concurrent=SERVE_LANES)  # warm
+    torch.cuda.synchronize()
+    kops.reset_launch_counts()
+    t0 = time.perf_counter()
+    many = sexe.run_many(inputs, max_concurrent=SERVE_LANES)
+    torch.cuda.synchronize()
+    t_many = time.perf_counter() - t0
+    counts = kops.launch_counts()
+    want = {"rmsnorm": 2 * SERVE_INSTANCES, "flash_attention": 0, "decode_attention": 0}
+    if counts != want:
+        fail(f"S-serve run_many launched {counts}, not {want}")
+    if len(many) != len(per):
+        fail("S-serve: run_many returned another number of results")
+    for i, (a, b) in enumerate(zip(many, per)):
+        stores_equal(torch, f"S-serve instance {i}, run_many vs per instance", a.data, b.data)
+        on_device(torch, f"S-serve instance {i}", a.data, device)
+    ing = per[0].data["l0"]
+    check_close("S-serve d_ingest = rmsnorm(d_seed)", ing["d_ingest"],
+                ref.rmsnorm_ref(ing["d_seed"], torch.ones(SERVE_SHAPE[1], device=device)), 2e-5)
+    out["launches"]["S-serve run_many"] = counts
+    out["S-serve"] = {"instances": SERVE_INSTANCES, "max_concurrent": SERVE_LANES, "per_instance_s": t_per,
+                      "run_many_s": t_many, "per_instance_ips": SERVE_INSTANCES / t_per,
+                      "run_many_ips": SERVE_INSTANCES / t_many, "launches": counts}
+    print(f"[16] S-serve {SERVE_INSTANCES} instances of {list(SERVE_SHAPE)} fp32: per instance (trace -> "
+          f"optimize -> lower -> compile -> run each) {SERVE_INSTANCES / t_per:.1f} instances/s, run_many("
+          f"max_concurrent={SERVE_LANES}) {SERVE_INSTANCES / t_many:.1f} instances/s "
+          f"(x{t_per / t_many:.2f}); stores equal; run_many launched {counts}; {smi}")
+
+    # (e) Traced: P-full and G, each span schema against the same plan's on the CPU.
+    for label in ("P-full", "G"):
+        if label == "G":
+            tplan, tfns, tfeed = gplan, gfns, init
+            cpu_feed, cpu_fns = g_setup(torch, inst, "cpu")
+        else:
+            shape = DP_SHAPES[label]
+            w, w_cpu = torch.ones(shape[1], device=device), torch.ones(shape[1])
+            tplan, tfns = plan, dp_fns(lambda v, w=w: kops.rmsnorm(v, w), mix)
+            tfeed = {("l0", "d0"): torch.from_numpy(
+                np.random.default_rng(7).standard_normal(shape).astype(np.float32)).to(device)}
+            cpu_fns = dp_fns(lambda v, w=w_cpu: kops.rmsnorm(v, w), mix)
+            cpu_feed = {("l0", "d0"): torch.randn(4, shape[1])}  # the schema depends on no value
+        cpu_schema = tplan.lower("threaded", timeout_s=THREADED_TIMEOUT_S, trace=True).compile(cpu_fns).run(
+            initial_payloads=dict(cpu_feed)).profile.span_schema()
+        untraced = tplan.lower("threaded", timeout_s=THREADED_TIMEOUT_S).compile(tfns)
+        traced = tplan.lower("threaded", timeout_s=THREADED_TIMEOUT_S, trace=True).compile(tfns)
+        t_u, res_u, t_t, res_t = dp_time_pair(torch, untraced, traced, tfeed)
+        if res_u.profile is not None or res_t.profile is None:
+            fail(f"{label} traced: a profile on the untraced run or none on the traced one")
+        stores_equal(torch, f"{label} traced vs untraced", res_t.data, res_u.data)
+        if res_t.profile.span_schema() != cpu_schema:
+            fail(f"{label} traced: the span schema on the card differs from the CPU's")
+        exec_ms = sum(sp.duration for sp in res_t.profile.spans if sp.kind == "exec") * 1e3
+        dev_ms = device_ms_and_copies(torch, lambda: untraced.run(initial_payloads=dict(tfeed)))[0]
+        ratio = min(t_t) / min(t_u)
+        out[f"{label} traced"] = {"untraced_ms": t_u, "traced_ms": t_t, "traced_over_untraced": ratio,
+                                  "traced_over_untraced_median": statistics.median(t_t) / statistics.median(t_u),
+                                  "exec_span_ms": exec_ms, "untraced_device_ms": dev_ms,
+                                  "spans": len(res_t.profile.spans)}
+        print(f"[16] {label} traced: untraced {min(t_u):.4f} ms, traced {min(t_t):.4f} ms a run (medians "
+              f"{statistics.median(t_u):.4f}, {statistics.median(t_t):.4f}), traced/untraced {ratio:.3f}; "
+              f"{len(res_t.profile.spans)} spans, exec spans {exec_ms:.4f} ms over {dev_ms:.4f} ms of device "
+              f"time in an untraced run; schema equals the CPU's; {smi}")
+        if label == "P-full" and exec_ms < TRACE_COVER * dev_ms:
+            fail(f"P-full traced: exec spans {exec_ms:.4f} ms cover less than {TRACE_COVER} of the "
+                 f"device's {dev_ms:.4f} ms")
+
+    # (f) A step that fails after it launched a kernel.
+    w = torch.ones(DP_SHAPES["P-ref"][1], device=device)
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal(DP_SHAPES["P-ref"]).astype(np.float32)).to(device)
+    bad = dp_fns(lambda v: kops.rmsnorm(v, w), mix)
+    planted = []
+
+    def failing(i):
+        y = kops.rmsnorm(i["d4"], w)
+        if not planted:
+            planted.append(RuntimeError("a planted failure after a launch"))
+            raise planted[0]
+        return {"d5": y}
+
+    bad["s5"] = failing
+    fexe = plan.lower("threaded", timeout_s=THREADED_TIMEOUT_S).compile(bad)
+    try:
+        fexe.run(initial_payloads={("l0", "d0"): x})
+    except RuntimeError as e:
+        if "location l0 failed" not in str(e) or e.__cause__ is not planted[0]:
+            fail(f"the failing step surfaced as {e!r}, not the reference's location error")
+    else:
+        fail("a run whose step raised did not fail")
+    after = fexe.run(initial_payloads={("l0", "d0"): x})
+    torch.cuda.synchronize()
+    check_close("after a failed run, d5 = rmsnorm(d4)", after.data["l0"]["d5"],
+                ref.rmsnorm_ref(after.data["l0"]["d4"], w), 2e-5)
+    print("[16] a step that raised after a launch failed its run with RuntimeError('location l0 failed: ...') "
+          "from the planted error; the next run of the same executable succeeded")
+    # (g) What a run's threads cost the host: one per location and one per
+    # Par branch, each started and joined.
+    starts = []
+    for _ in range(50):
+        t0 = time.perf_counter()
+        th = threading.Thread(target=lambda: None, daemon=True)
+        th.start()
+        th.join(THREADED_TIMEOUT_S)
+        starts.append((time.perf_counter() - t0) * 1e3)
+    out["thread_start_join_ms"] = {"min": min(starts), "median": statistics.median(starts)}
+    print(f"[16] a host thread started and joined: min {min(starts):.4f} ms, median "
+          f"{statistics.median(starts):.4f} ms (50); threads a run starts: {out['threads_a_run']}; {smi}")
+    out["seconds"] = time.monotonic() - t_phase
+    print(f"[16] the threaded backend's phase took {out['seconds']:.1f} s")
+    return out
+
+
 def fmt_ms(xs) -> str:
     return "[" + ", ".join(f"{x:.2f}" for x in xs) + "]"
 
@@ -3580,6 +3908,8 @@ def main() -> int:
                     help="only phase 14, distribution on a 1 x 1 mesh, its result to OUT (a child process)")
     ap.add_argument("--dryrun", metavar="OUT", type=Path,
                     help="only phase 15, the dry-run and the roofline, its result to OUT (a child process)")
+    ap.add_argument("--threaded", metavar="OUT", type=Path,
+                    help="only phase 16, the threaded backend, its result to OUT (a child process)")
     opts = ap.parse_args()
     # One process makes and frees models of up to 34 GB and trains two more:
     # with fixed segments the freed memory splinters, and phase 11's jamba
@@ -3620,6 +3950,8 @@ def main() -> int:
         return child(torch, opts.distribution, phase_distribution)
     if opts.dryrun is not None:
         return child(torch, opts.dryrun, phase_dryrun)
+    if opts.threaded is not None:
+        return child(torch, opts.threaded, phase_threaded)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -3673,6 +4005,9 @@ def main() -> int:
 
     # -- 15. the dry-run on the card's torch, and the roofline beside two measured cells -----
     dryrun = run_child("15", "--dryrun", "the dry-run")
+
+    # -- 16. the threaded backend: one host thread per location, tensors on the card -------
+    threaded = run_child("16", "--threaded", "the threaded backend")
 
     # -- 3. kernels vs plain -----------------------------------------------------
     bench = Bench(torch, sku)
@@ -3805,6 +4140,7 @@ def main() -> int:
                 **{f"fwdbwd {cell}": {mode: c[k] for mode, c in distribution[cell]["launches"].items()}
                    for cell in DIST_CELLS},
                 **{f"step {cell}": dryrun[cell]["launches"][k] for cell in ("R-decode", "R-train")},
+                **{f"threaded {path}": c[k] for path, c in threaded["launches"].items()},
             },
         })
     print(json.dumps({"dataplane": dataplane}))
@@ -3816,6 +4152,7 @@ def main() -> int:
     print(json.dumps({"training": training}))
     print(json.dumps({"distribution": distribution}))
     print(json.dumps({"dryrun": dryrun}))
+    print(json.dumps({"threaded": threaded}))
     print(f"kernels: {', '.join(r['name'] for r in record)}; {time.monotonic() - t_start:.1f} s in all")
     print(smi)
     print(json.dumps({"kernels": record}))

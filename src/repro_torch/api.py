@@ -21,11 +21,13 @@ End to end::
         .run()
     )
 
-Two backends resolve by name through :mod:`repro_torch.backends`:
+Three backends resolve by name through :mod:`repro_torch.backends`:
 ``torch``, which places each location on a device and runs on ``cuda``
-unless lowered with ``platform="cpu"``, and ``inprocess``, the reference's
-thread-pool runtime with retry, speculation and checkpoint/restore, which
-places nothing.  As in the reference, every stage is a value: a
+unless lowered with ``platform="cpu"``; ``inprocess``, the reference's
+thread-pool runtime with retry, speculation and checkpoint/restore; and
+``threaded``, one thread per location over a transport (the paper's
+execution model and the reference's default).  The last two place nothing:
+a step's tensors stay where the step put them.  As in the reference, every stage is a value: a
 :class:`Plan` can be optimised twice with different rule sets, certified
 against the original system with the weak-barbed-bisimulation checker of
 :mod:`repro_torch.core.bisim` (Thm. 1), scheduled against a network cost
@@ -586,7 +588,8 @@ class Plan:
         (:meth:`schedule`) against ``network=`` (default: the ``uniform``
         preset) and ``objective=``.  Backend-specific ``options`` (the
         ``torch`` backend's ``devices``/``platform``/``fuse``/``max_rounds``,
-        and ``trace``/``policy``) are validated here, before any execution;
+        the ``threaded`` backend's channel fault injection and
+        ``transport``/``timeout_s``, and ``trace``/``policy``) are validated here, before any execution;
         a schedule report, when present, is handed down as the uniform
         ``schedule`` option (the ``torch`` backend maps each network group's
         locations onto one contiguous block of devices).
@@ -790,11 +793,17 @@ class Executable:
     One Executable owns one :class:`BackendProgram`.  Whether *whole runs*
     may overlap is the backend's call
     (:meth:`~repro_torch.backends.base.BackendProgram.concurrent_batches`).
-    Both backends' runs share program-level state (the ``torch`` backend's
-    captured CUDA graphs and their static buffers, the ``inprocess``
-    backend's snapshot slots), so each keeps the exclusive guard:
-    a second overlapping run raises :class:`ConcurrentRunError` (compile
-    another Executable from the same :class:`Lowered` to run concurrently).
+
+    * the ``threaded`` backend's runs are fully isolated (fresh per-run
+      transports, per-batch/per-instance endpoint namespaces), so it serves
+      any number of concurrent :meth:`run`/:meth:`run_many` calls on one
+      compiled Executable;
+    * the ``torch`` backend's runs (its captured CUDA graphs and their
+      static buffers) and the ``inprocess`` backend's (its snapshot slots)
+      share program-level state, so each keeps the exclusive guard: a
+      second overlapping run raises :class:`ConcurrentRunError` (compile
+      another Executable from the same :class:`Lowered` to run
+      concurrently).
 
     In both regimes a :meth:`run_many` batch counts as one run — its
     *internal* instance parallelism happens below the guard and is never

@@ -1,10 +1,12 @@
 """The port's backend registry.
 
 ``Plan.lower(backend="...")`` resolves names through this registry.  It is
-the port's own and holds two backends, ``inprocess`` (the reference
-trainer's, checkpointable) and ``torch`` (places each location on a CUDA
-device, fuses and traces); it never touches ``repro.backends``, whose
-registry the reference's sweeps enumerate.
+the port's own and holds three backends, ``inprocess`` (the reference
+trainer's, checkpointable), ``threaded`` (one thread per location over a
+transport, the reference's default) and ``torch`` (places each location on
+a CUDA device, fuses and traces); it never touches ``repro.backends``, whose
+registry the reference's sweeps enumerate, and no entry point of the
+``repro.backends`` group names one of them.
 Factories are zero-argument callables returning a :class:`Backend`; they are
 invoked lazily so registering a backend never imports its dependencies.
 """
@@ -46,6 +48,7 @@ def _builtin(module: str) -> BackendFactory:
 
 _REGISTRY: dict[str, BackendFactory] = {
     "inprocess": _builtin("repro_torch.backends.inprocess"),
+    "threaded": _builtin("repro_torch.backends.threaded_backend"),
     "torch": _builtin("repro_torch.backends.torch_backend"),
 }
 

@@ -4,11 +4,13 @@ A copy of ``repro/backends/base.py``.  A backend turns a lowered
 :class:`~repro_torch.exec.program.ExecProgram` — the per-location executable
 program IR of :mod:`repro_torch.exec` — plus a step registry into a
 :class:`BackendProgram`, the backend-specific compiled artifact behind
-:class:`repro_torch.api.Executable`.  The port ships two interpreters over that
-IR: ``torch`` (:mod:`repro_torch.backends.torch_backend`), which places
-each location on a CUDA device, and ``inprocess``
+:class:`repro_torch.api.Executable`.  The port ships three interpreters over
+that IR: ``torch`` (:mod:`repro_torch.backends.torch_backend`), which places
+each location on a CUDA device, ``inprocess``
 (:mod:`repro_torch.backends.inprocess`), the reference's checkpointable
-thread-pool runtime.
+thread-pool runtime, and ``threaded``
+(:mod:`repro_torch.backends.threaded_backend`), one thread per location over
+a transport.
 """
 
 from __future__ import annotations

@@ -10,7 +10,8 @@ nothing of :mod:`repro`):
 * :mod:`~repro_torch.core.optimizer` — rewriting rules ``⟦·⟧ : W_W → W_O`` (§4, Def. 15)
 * :mod:`~repro_torch.core.parser`    — ``.swirl`` surface syntax (§5)
 * :mod:`~repro_torch.core.translate` — front-end translators incl. 1000 Genomes (§5-6)
-* :mod:`~repro_torch.core.compile`   — the step metadata model
+* :mod:`~repro_torch.core.compile`   — the step metadata model and the legacy
+  per-location bundles (§5)
 * :mod:`~repro_torch.core.semantics` — reduction semantics, Figs. 2-3 (LTS)
 * :mod:`~repro_torch.core.bisim`     — weak barbed bisimulation (Def. 16 / Thm. 1),
   behind ``Plan.certify``
@@ -78,7 +79,16 @@ from .translate import (
     TrainPipelineTranslator,
     genomes_1000,
 )
-from .compile import Channel, StepFn, StepMeta
+from .compile import (
+    Channel,
+    LocationBundle,
+    StepFn,
+    StepMeta,
+    build_bundles,
+    compile_bundles,
+    emit_all,
+    emit_python_source,
+)
 
 __all__ = [
     "Workflow",
@@ -137,6 +147,11 @@ __all__ = [
     "PipelineTranslator",
     "genomes_1000",
     "StepFn",
+    "LocationBundle",
+    "build_bundles",
+    "compile_bundles",
+    "emit_python_source",
+    "emit_all",
     "StepMeta",
     "Channel",
 ]

@@ -3,7 +3,9 @@
 :func:`lower_system` turns an (optimised) workflow system into an
 :class:`ExecProgram`: one :class:`LocationProgram` per location holding a
 program-order array of resolved ``SEND``/``RECV``/``EXEC`` ops plus a flat
-control skeleton.  The port's ``torch`` backend interprets this one form.
+control skeleton.  Every backend of the port interprets this one form, and
+:mod:`~repro_torch.exec.emit` turns it into standalone per-location Python
+source (paper §5).
 """
 
 from .program import (
@@ -19,6 +21,7 @@ from .program import (
 )
 from .interp import Cursor, Deadline, StepGuard
 from .policy import FaultPolicy, RunDeadlineExceeded, StepTimeoutError
+from .emit import emit_location_source, emit_program_sources
 
 __all__ = [
     "Deadline",
@@ -36,4 +39,6 @@ __all__ = [
     "lower_flat",
     "to_action",
     "Cursor",
+    "emit_location_source",
+    "emit_program_sources",
 ]

@@ -9,8 +9,11 @@ instead of by tree traversal).  Completing an op advances sequence pointers
 and parallel join counters in O(depth); the enabled set is always available
 in O(1).
 
-The port's one interpreter, the deterministic reducer of the ``torch``
-backend, drives one cursor per location and fires matching ops.
+Centralised interpreters (the ``inprocess`` dataflow runtime, the
+deterministic reducer of the ``torch`` backend) drive one cursor per
+location and fire matching ops; the decentralised threaded interpreter
+instead recurses over the same :class:`~repro_torch.exec.program.ControlSpec`
+with real threads.
 """
 
 from __future__ import annotations

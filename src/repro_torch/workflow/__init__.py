@@ -1,12 +1,73 @@
-"""The parts of ``repro.workflow`` the port needs.
+"""Distributed workflow runtime for SWIRL systems, copied from ``repro.workflow``.
 
-* :mod:`~repro_torch.workflow.fault`   — retry/speculation/heartbeat policies
-  (:mod:`repro_torch.exec.policy` builds its retry engine from them);
-* :mod:`~repro_torch.workflow.runtime` — the run records of the ``inprocess``
-  backend's engine: :class:`RunStats`, :class:`Checkpoint`,
-  :class:`WorkflowDeadlock`.
+* :mod:`~repro_torch.workflow.runtime`  — reduction-driven, checkpointable
+  executor with retry / speculation / heartbeats (execution *is* SWIRL
+  reduction); the run records of the ``inprocess`` backend's engine.
+* :mod:`~repro_torch.workflow.threaded` — decentralised per-location threads
+  interpreting the execution IR (:class:`ThreadedProgramRuntime`, the
+  generated-program execution model of paper §5; the tree-walking
+  ``ThreadedRuntime`` is kept as a deprecated reference oracle).
+* :mod:`~repro_torch.workflow.channels` — in-process channels with fault
+  injection.
+* :mod:`~repro_torch.workflow.transport` — pluggable COMM transports
+  (in-memory queues, ack-based sockets, shared memory) under the threaded
+  backend.
+* :mod:`~repro_torch.workflow.fault`    — retry/speculation/heartbeat policies.
+
+The reference's ``workflow.elastic`` (location renaming, recovery,
+rebalance) is not ported yet.
 """
 
-from .runtime import Checkpoint, RunStats, WorkflowDeadlock
+from .channels import Channel, ChannelClosed, ChannelRegistry
+from .transport import (
+    AckTimeout,
+    InMemoryTransport,
+    SocketTransport,
+    Transport,
+    get_transport,
+    register_transport,
+    socket_addresses,
+)
+from .fault import (
+    DEFAULT_HEARTBEAT_TIMEOUT_S,
+    FlakyFn,
+    HeartbeatMonitor,
+    LocationDead,
+    PermanentError,
+    RetryPolicy,
+    SlowFn,
+    SlowOnceAcrossProcesses,
+    SpeculationPolicy,
+    TransientError,
+)
+from .runtime import Checkpoint, Runtime, RunStats, WorkflowDeadlock
+from .threaded import ThreadedProgramRuntime, ThreadedRuntime
 
-__all__ = ["Checkpoint", "RunStats", "WorkflowDeadlock"]
+__all__ = [
+    "AckTimeout",
+    "Channel",
+    "ChannelClosed",
+    "ChannelRegistry",
+    "DEFAULT_HEARTBEAT_TIMEOUT_S",
+    "Transport",
+    "InMemoryTransport",
+    "SocketTransport",
+    "register_transport",
+    "get_transport",
+    "socket_addresses",
+    "Runtime",
+    "RunStats",
+    "Checkpoint",
+    "WorkflowDeadlock",
+    "ThreadedRuntime",
+    "ThreadedProgramRuntime",
+    "RetryPolicy",
+    "SpeculationPolicy",
+    "HeartbeatMonitor",
+    "TransientError",
+    "PermanentError",
+    "LocationDead",
+    "FlakyFn",
+    "SlowFn",
+    "SlowOnceAcrossProcesses",
+]

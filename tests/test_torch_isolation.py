@@ -65,6 +65,13 @@ DRYRUN = ("repro_torch.launch.dryrun", "repro_torch.roofline", "repro_torch.roof
           "repro_torch.roofline.analytic", "repro_torch.roofline.collectives", "repro_torch.roofline.counting",
           "repro_torch.roofline.report")
 
+# The threaded backend's slice: its wire, the bundle layer and the legacy
+# oracles, which it must reach too.
+THREADED = ("repro_torch._compat", "repro_torch.core.compile", "repro_torch.exec.emit",
+            "repro_torch.workflow.channels", "repro_torch.workflow.transport",
+            "repro_torch.workflow.threaded", "repro_torch.workflow.runtime",
+            "repro_torch.backends.threaded_backend")
+
 
 def test_port_imports_no_jax_and_no_repro():
     out = subprocess.run(
@@ -76,7 +83,7 @@ def test_port_imports_no_jax_and_no_repro():
     n_modules = int(out.stdout.split()[0])
     assert n_modules >= 15  # every module of the port was imported
     imported = set(out.stdout.splitlines()[1].split())
-    walked = set(TRAINING + MOE + RECURRENT + FAMILIES + INPROCESS + DISTRIBUTION + DRYRUN)
+    walked = set(TRAINING + MOE + RECURRENT + FAMILIES + INPROCESS + DISTRIBUTION + DRYRUN + THREADED)
     assert walked <= imported, sorted(walked - imported)
 
 

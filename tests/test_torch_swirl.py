@@ -226,18 +226,20 @@ def test_unported_stages_raise_by_name():
     traced = plan.lower("torch", trace=True, platform="cpu").compile(fns).run()
     report = plan.profile(traced)
     assert report.backend == "torch" and report.drifts
-    for name in ("jax", "threaded", "multiprocess", "nope"):
-        with pytest.raises(UnknownBackendError, match="available: \\('inprocess', 'torch'\\)"):
+    for name in ("jax", "multiprocess", "nope"):
+        with pytest.raises(UnknownBackendError, match="available: \\('inprocess', 'threaded', 'torch'\\)"):
             plan.lower(name)
 
 
 def test_registry_is_the_ports_own():
-    assert available_backends() == ("inprocess", "torch")
+    assert available_backends() == ("inprocess", "threaded", "torch")
     _plan().lower("torch", platform="cpu")
     _plan().lower("inprocess")
+    _plan().lower("threaded")
     assert "torch" not in jbackends._REGISTRY
     assert "torch" not in jbackends.available_backends()
     assert jbackends.get_backend("inprocess").__module__ == "repro.backends.inprocess"
+    assert jbackends.get_backend("threaded").__module__ == "repro.backends.threaded_backend"
 
 
 def test_default_platform_is_cuda_and_raises_without_it(monkeypatch):
