@@ -247,6 +247,41 @@ Phases, each of which exits nonzero on failure:
    a run starts (one per location and per ``Par`` branch) and what a host
    thread costs to start and join.  The child's failure fails the run.
 
+17. The multiprocess backend on the card, in a sixth child process
+   (``chip_smoke.py --multiprocess OUT``) started after phase 16's: SWIRL
+   plans lowered with ``lower("multiprocess", start_method="spawn")``, one
+   OS process per location, payloads fp32 tensors on ``cuda`` in every
+   worker, the step bodies module-level functions (they pickle) that add a
+   report of their own process, launches and clock to the coordinator's
+   merged store.  (a) P-split at (64, 256) and [8192, 3072]: the store bit
+   for bit the ``threaded`` backend's of the same plan and bodies, each
+   rmsnorm step within 2e-5 of its plain version, exactly 3 rmsnorm
+   launches inside the workers a run, worker PIDs distinct and none this
+   process's, no worker left after a run.  (b) G on its 9 worker processes,
+   likewise; the card's busy share of a run (CUDA events in each body).
+   (c) A worker killed at a P-split step raises ``WorkerFailedError`` naming
+   its location and step; the same kill with ``recover="spare"`` completes
+   with the clean store under the renaming.  (d) A ``fork`` run whose
+   payloads are CUDA tensors, from this process with CUDA initialised,
+   fails as a ``WorkerFailedError`` naming its location and step within its
+   ``timeout_s``.  Prints ms a run (median of 3; each run starts its fleet)
+   split into the fleet's start, the steps and the teardown, beside
+   ``threaded`` and ``torch`` interpreted, and messages and bytes on the
+   wire.  The child's failure fails the run.
+
+18. The gateway on the card, in a seventh child process (``chip_smoke.py
+   --gateway OUT``): a ``WorkflowService`` on ``threaded`` behind a
+   ``Gateway`` on 127.0.0.1 serves the serving shape of
+   ``examples/serve_batched.py`` (its sink answering a number), each step
+   making its request's [512, 3072] fp32 tensor on ``cuda`` from the
+   request's seed and running rmsnorm.  8 ``GatewayClient`` threads send 200
+   requests: every answer equal to the same request run in process on the
+   service, exactly 2 rmsnorm launches a request; a tenant over its quota
+   gets 429 with ``Retry-After``; ``/v1/healthz`` and ``/v1/metrics``
+   answer; one request on a service with ``backend="multiprocess"`` (spawn)
+   answers the same number.  Prints requests/s and p50 / p99 ms.  The
+   child's failure fails the run.
+
 ``python3 chip_smoke.py --rmsnorm-times ROOT`` only times the rmsnorm
 wrapper of the checkout at ROOT (see :func:`rmsnorm_times`), and
 ``--dataplane-times ROOT`` only its untraced data plane (see
@@ -256,7 +291,7 @@ checkouts at A and B in alternating pairs (see :func:`dataplane_compare`).
 The line before the last is the kernels' JSON record (each kernel's
 launches on each path under ``launches_by_path``), the data plane's,
 the traced phase's, training's, the MoE phase's, the recurrent phase's,
-the families', phase 13's, phase 14's, phase 15's and phase 16's numbers above the card's name; the last line is
+the families', phase 13's to phase 18's numbers above the card's name; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 rest of the repository beside it, it exits nonzero and prints no result.
 """
@@ -270,6 +305,7 @@ import functools
 import gc
 import json
 import os
+import pickle
 import re
 import statistics
 import subprocess
@@ -507,6 +543,26 @@ R_DECODE_ROWS = 160  # phase 4's cache: a 128-token prompt and 32 generated
 # per instance and through run_many(max_concurrent=SERVE_LANES).
 THREADED_TIMEOUT_S, G_DROP = 60.0, 0.1
 SERVE_INSTANCES, SERVE_LANES, SERVE_SHAPE = 100, 8, (512, 3072)
+
+# Phase 17: the multiprocess backend on the card.  Each plan is lowered with
+# start_method="spawn" (a forked child cannot use its parent's CUDA context)
+# and the reference's default timeout; MP_RUNS runs a cell, each starting its
+# own fleet of worker processes.  Every step body is a module-level function
+# (so that it pickles) and adds one output of its own, MP_REPORT + its step:
+# its process, the kernels it launched there and its span on the monotonic
+# clock.  That output reaches only the coordinator's merged store.
+MP_TIMEOUT_S, MP_RUNS, MP_REPORT = 120.0, 3, "report:"
+# The socket wire resends a message whose ack has not come within its
+# ack_timeout (1 s by default, for lossy links).  Nothing is lost on a local
+# socket, and a [8192, 3072] fp32 tensor (100 MB) is pickled through the
+# host, crosses the socket and is rebuilt on the card before its ack, which
+# leaves a 1 s timeout little margin; a resend moves the 100 MB again.
+MP_ACK_TIMEOUT_S = 30.0
+# Phase 18: the gateway.  GW_CLIENTS client threads send GW_REQUESTS requests
+# of the serving shape, each request's datum a GW_SHAPE fp32 tensor made on
+# the card from its seed; a run held for the over-quota check waits at most
+# GW_GATE_S.
+GW_REQUESTS, GW_CLIENTS, GW_SHAPE, GW_GATE_S = 200, 8, (512, 3072), 30.0
 
 # The leaves that a bf16 model keeps in fp32 (the mLSTM's input and forget
 # gates, the sLSTM's gate biases): AdamW must leave them fp32.
@@ -2840,8 +2896,9 @@ def phase_families(torch, smi: str, sku: str) -> dict:
 
 
 def child(torch, out: Path, phase) -> int:
-    """``--families OUT`` or ``--training OUT``: phase 12 or 13 alone, in a
-    process of its own; writes its result to OUT as JSON."""
+    """``--families OUT``, ``--training OUT`` and the other child options:
+    one phase alone, in a process of its own; writes its result to OUT as
+    JSON."""
     from repro_torch.kernels import ops as kops
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3785,6 +3842,511 @@ def phase_threaded(torch, smi: str, sku: str, device: str = "cuda") -> dict:
     return out
 
 
+# -- phase 17: the multiprocess backend, one OS process per location ----------------
+
+
+def worker_report(kops, before: dict, t0: float) -> dict:
+    """What a phase 17 step body reports of itself, as an extra output that
+    reaches only the coordinator's merged store (``checkpoint()``): its
+    process, the kernels it launched there (its process's counters, read
+    just before and just after) and its span on the machine's monotonic
+    clock (one clock for every process)."""
+    after = kops.launch_counts()
+    return {"pid": os.getpid(), "launches": {k: after[k] - before[k] for k in after}, "t0": t0,
+            "t1": time.monotonic()}
+
+
+def mp_norm(step: str, a: str, b: str, w, inputs: dict) -> dict:
+    """Phase 7's rmsnorm step with the weights ``w``, as a module-level
+    function, which pickles for ``start_method="spawn"``."""
+    from repro_torch.kernels import ops as kops
+
+    t0, before = time.monotonic(), kops.launch_counts()
+    y = kops.rmsnorm(inputs[a], w)
+    return {b: y, MP_REPORT + step: worker_report(kops, before, t0)}
+
+
+def mp_mix(step: str, a: str, b: str, inputs: dict) -> dict:
+    """Phase 7's elementwise mix step, module-level."""
+    import torch
+    from repro_torch.kernels import ops as kops
+
+    t0, before = time.monotonic(), kops.launch_counts()
+    v = inputs[a]
+    return {b: 0.5 * v + 0.1 * torch.tanh(v), MP_REPORT + step: worker_report(kops, before, t0)}
+
+
+def mp_dp_fns(w) -> dict:
+    """Phase 7's 12 step bodies (rmsnorm with the weights ``w`` at k = 0, 4,
+    8, the mix elsewhere), each a partial of a module-level function.  Every
+    worker gets every body, so each unpickles ``w`` as it starts: it imports
+    torch and, for ``w`` on the card, makes its CUDA context then."""
+    return {f"s{k + 1}": (functools.partial(mp_norm, f"s{k + 1}", f"d{k}", f"d{k + 1}", w) if k % 4 == 0
+                          else functools.partial(mp_mix, f"s{k + 1}", f"d{k}", f"d{k + 1}"))
+            for k in range(DP_STEPS)}
+
+
+def mp_g_source(step: str, names: tuple, ones, inputs: dict) -> dict:
+    """G's ``s0``: hands out :func:`g_setup`'s payloads, made again from
+    its seed in the worker (the same values in the same order) on the
+    device of ``ones``."""
+    import torch
+    from repro_torch.kernels import ops as kops
+
+    t0, before = time.monotonic(), kops.launch_counts()
+    rng = np.random.default_rng(0)
+    out = {d: torch.from_numpy(rng.random(G_ELEMS).astype(np.float32)).to(ones.device) for d in names}
+    return out | {MP_REPORT + step: worker_report(kops, before, t0)}
+
+
+def mp_g_sum(step: str, outs: tuple, ones, inputs: dict) -> dict:
+    """Every other G step: :func:`g_setup`'s sum of the inputs into a vector
+    of ones.  On the card the body's device time rides on its report (CUDA
+    events around its work, then a wait for the second)."""
+    import torch
+    from repro_torch.kernels import ops as kops
+
+    t0, before = time.monotonic(), kops.launch_counts()
+    timed = ones.is_cuda
+    if timed:
+        events = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        events[0].record()
+    out = {o: sum(torch.sum(v) for v in inputs.values()) * ones for o in outs}
+    report = worker_report(kops, before, t0)
+    if timed:
+        events[1].record()
+        events[1].synchronize()
+        report["device_ms"] = events[0].elapsed_time(events[1])
+    return out | {MP_REPORT + step: report}
+
+
+def mp_g_fns(inst, ones) -> dict:
+    """G's bodies as partials of module-level functions, holding a vector of
+    G_ELEMS ones on the device (which each worker unpickles as it starts)."""
+    names = tuple(sorted(inst.g("l^d")))
+    return {s: functools.partial(mp_g_source, s, names, ones) if s == "s0"
+            else functools.partial(mp_g_sum, s, tuple(sorted(inst.out_data(s))), ones)
+            for s in inst.workflow.steps}
+
+
+def worker_reports(payloads: dict) -> dict:
+    """``{step: report}`` from a coordinator's merged store."""
+    return {d[len(MP_REPORT):]: v for (_, d), v in payloads.items() if d.startswith(MP_REPORT)}
+
+
+def without_reports(data: dict) -> dict:
+    """A result's stores without the step bodies' reports."""
+    return {loc: {d: v for d, v in ds.items() if not d.startswith(MP_REPORT)} for loc, ds in data.items()}
+
+
+def pickled_bytes(v) -> int:
+    """What a payload weighs on the socket wire (plain pickle; a CUDA
+    tensor's bytes go through the host)."""
+    return len(pickle.dumps(v, pickle.HIGHEST_PROTOCOL))
+
+
+def fleet_gone(name: str, mp, pids) -> None:
+    """Fails unless every worker of the last run is reaped and gone."""
+    if mp.active_children():
+        fail(f"{name}: worker processes were not reaped: {mp.active_children()}")
+    for pid in pids:
+        try:
+            os.kill(pid, 0)
+        except ProcessLookupError:
+            continue
+        fail(f"{name}: worker process {pid} outlived its run")
+
+
+def mp_cell(torch, label: str, plan, fns, feed, device: str, smi: str, start_method: str, **opts) -> tuple:
+    """One cell on ``multiprocess`` (MP_RUNS runs, each starting its own
+    fleet), held against ``threaded``'s store of the same plan and bodies
+    (bit for bit) and timed beside ``threaded`` and ``torch`` interpreted
+    (in turns, :func:`dp_time_pair`).  From the workers' reports: the fleet's
+    start (the call to the first step body: processes started, torch
+    imported, payloads unpickled) apart from the steps (the first body's
+    start to the last body's end) and the rest (the last body to the
+    result: done messages, teardown).  Returns the numbers, the executable,
+    its last result and that run's reports."""
+    import multiprocessing as mp
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    exe = plan.lower("multiprocess", start_method=start_method, timeout_s=MP_TIMEOUT_S,
+                     ack_timeout=MP_ACK_TIMEOUT_S, **opts).compile(fns)
+    walls, starts, steps, res, reports = [], [], [], None, {}
+    for _ in range(MP_RUNS):  # no warm run: every run starts its own fleet
+        sync()
+        t0 = time.monotonic()
+        res = exe.run(initial_payloads=dict(feed))
+        sync()
+        t1 = time.monotonic()
+        reports = worker_reports(exe.checkpoint().payloads)
+        first, last = min(r["t0"] for r in reports.values()), max(r["t1"] for r in reports.values())
+        walls.append((t1 - t0) * 1e3)
+        starts.append((first - t0) * 1e3)
+        steps.append((last - first) * 1e3)
+        print(f"[17] {label} run {len(walls)}: {walls[-1]:.1f} ms (fleet start {starts[-1]:.1f}, steps "
+              f"{steps[-1]:.1f})", flush=True)
+        pids = list(res.stats["pids"].values())
+        if len(set(pids)) != res.stats["workers"] or os.getpid() in pids:
+            fail(f"{label}: worker pids {pids} are not distinct processes apart from this one")
+        if {r["pid"] for r in reports.values()} - set(pids):
+            fail(f"{label}: a step ran outside the fleet's processes")
+        if res.backend != "multiprocess" or res.stats["start_method"] != start_method:
+            fail(f"{label}: ran on {res.backend} with {res.stats.get('start_method')}")
+        fleet_gone(label, mp, pids)
+    platform = {} if device == "cuda" else {"platform": "cpu"}
+    thr = plan.lower("threaded", timeout_s=THREADED_TIMEOUT_S, **opts).compile(fns)
+    ref_exe = plan.lower("torch", **platform, **opts).compile(fns)
+    t_t, res_t, t_r, res_r = dp_time_pair(torch, thr, ref_exe, feed)
+    stores_equal(torch, f"{label} multiprocess vs threaded", res.data, res_t.data)
+    on_device(torch, f"{label} multiprocess", res.data, device)
+    launches = {k: sum(r["launches"][k] for r in reports.values()) for k in ("rmsnorm", "flash_attention",
+                                                                             "decode_attention")}
+    out = {"multiprocess_ms": walls, "fleet_start_ms": starts, "steps_ms": steps,
+           "teardown_ms": [w - s - t for w, s, t in zip(walls, starts, steps)],
+           "multiprocess_median_ms": statistics.median(walls), "fleet_start_median_ms": statistics.median(starts),
+           "steps_median_ms": statistics.median(steps), "threaded_ms": t_t, "torch_ms": t_r,
+           "threaded_median_ms": statistics.median(t_t), "torch_median_ms": statistics.median(t_r),
+           "workers": res.stats["workers"], "groups": res.stats["groups"], "start_method": start_method,
+           "launches": launches}
+    print(f"[17] {label}: multiprocess {statistics.median(walls):.1f} ms a run (median of {MP_RUNS}: fleet start "
+          f"{statistics.median(starts):.1f}, steps {statistics.median(steps):.1f}, teardown "
+          f"{statistics.median(out['teardown_ms']):.1f}) on {res.stats['workers']} {start_method}ed workers; "
+          f"threaded {statistics.median(t_t):.4f} ms, torch interpreted {statistics.median(t_r):.4f} ms (medians); "
+          f"stores equal to threaded's; rmsnorm launched {launches['rmsnorm']} times in the workers; {smi}")
+    return out, exe, res, reports
+
+
+def wire_bytes(exe, res) -> dict:
+    """Messages and pickled bytes of a run: worker to worker (one message a
+    COMM) and to the coordinator (every step's delta, then each worker's
+    done with its locations' stores)."""
+    from repro_torch.exec.program import SendOp
+
+    sends = [op for lp in exe.program.program.programs for op in lp.ops if isinstance(op, SendOp)]
+    store = {}
+    for loc in res.data:
+        store.update(res.data[loc])
+    return {"messages": len(sends), "bytes": sum(pickled_bytes(res.data[op.src][op.data]) for op in sends),
+            "control_bytes": sum(pickled_bytes(v) for v in store.values())
+            + sum(pickled_bytes(v) for loc in res.data for v in res.data[loc].values())}
+
+
+def phase_multiprocess(torch, smi: str, sku: str, device: str = "cuda", start_method: str = "spawn") -> dict:
+    """Phase 17: SWIRL plans on the ``multiprocess`` backend, one OS process
+    per location, array payloads as tensors on ``device`` in every worker
+    (see the module doc).  Returns the numbers it prints and the kernels'
+    launches inside the workers."""
+    import multiprocessing as mp
+
+    from repro_torch import swirl
+    from repro_torch.backends import WorkerFailedError
+    from repro_torch.core.graph import DistributedWorkflowInstance, make_workflow
+    from repro_torch.core.translate import genomes_1000
+    from repro_torch.kernels import ref
+
+    t_phase = time.monotonic()
+    out = {"device": smi, "launches": {}}
+    plan = dp_pipeline(swirl, DistributedWorkflowInstance, make_workflow)
+    split = split_placement(DP_STEPS)
+    mp_opts = {"start_method": start_method, "timeout_s": MP_TIMEOUT_S, "ack_timeout": MP_ACK_TIMEOUT_S}
+
+    # (a) P-split at (64, 256) and [8192, 3072]: every datum crosses a process.
+    for label, shape in DP_SHAPES.items():
+        name = f"{label}/split"
+        x = torch.from_numpy(np.random.default_rng(7).standard_normal(shape).astype(np.float32)).to(device)
+        feed = {("l0", "d0"): x}
+        fns = mp_dp_fns(torch.ones(shape[1], device=device))
+        cell, exe, res, reports = mp_cell(torch, name, plan, fns, feed, device, smi, start_method, placement=split)
+        store = {}
+        for loc in res.data:
+            store.update(res.data[loc])
+        for k in (0, 4, 8):  # the rmsnorm steps, against the plain version
+            check_close(f"{name} multiprocess d{k + 1} = rmsnorm(d{k})", store[f"d{k + 1}"],
+                        ref.rmsnorm_ref(store[f"d{k}"], torch.ones(shape[1], device=device)), 2e-5)
+        want = {"rmsnorm": DP_NORMS, "flash_attention": 0, "decode_attention": 0}
+        if cell["launches"] != want:
+            fail(f"{name}: the workers of a run launched {cell['launches']}, not {want}")
+        cell["wire"] = wire_bytes(exe, res)
+        out["launches"][name] = cell["launches"]
+        out[name] = cell
+        print(f"[17] {name}: {cell['wire']['messages']} messages, {cell['wire']['bytes']} B worker to worker, "
+              f"{cell['wire']['control_bytes']} B to the coordinator (pickled); rmsnorm {cell['launches']} inside "
+              f"the workers")
+
+    # (b) G: 1000 Genomes, one worker process per location.
+    inst = genomes_1000(n=4, m=3, a=2, b=2, c=2)
+    gplan = swirl.trace(inst).optimize(G_RULES)
+    gfns = mp_g_fns(inst, torch.ones(G_ELEMS, device=device))
+    init, _ = g_setup(torch, inst, device)
+    cell, gexe, gres, reports = mp_cell(torch, "G", gplan, gfns, init, device, smi, start_method)
+    cell["wire"] = wire_bytes(gexe, gres)
+    wall = cell["multiprocess_ms"][-1]
+    if device == "cuda":
+        # The bodies' kernels, profiled in this process on threaded (the
+        # workers' own are out of this process's profiler's sight), and
+        # the events in the workers' bodies, which also hold the host's
+        # lazy loading of each kernel at its first launch in a fresh
+        # process: the card's busy time lies between them.
+        thr = gplan.lower("threaded", timeout_s=THREADED_TIMEOUT_S).compile(gfns)
+        thr.run(initial_payloads=dict(init))
+        dev_ms = device_ms_and_copies(torch, lambda: thr.run(initial_payloads=dict(init)))[0]
+        event_ms = sum(r["device_ms"] for r in reports.values() if "device_ms" in r)
+        cell |= {"device_ms": dev_ms, "event_ms": event_ms, "busy_share": dev_ms / wall,
+                 "busy_share_events": event_ms / wall}
+        print(f"[17] G: the bodies' kernels take {dev_ms:.4f} ms of device time a run (profiled on threaded) "
+              f"and {event_ms:.4f} ms by CUDA events in the workers' bodies (with each fresh process's lazy "
+              f"kernel loading), of a {wall:.1f} ms run: the card busy {dev_ms / wall:.5%} to "
+              f"{event_ms / wall:.3%}; {cell['wire']}; {smi}")
+    out["launches"]["G"] = cell["launches"]
+    out["G"] = cell
+
+    # (c) A killed worker, and the same kill recovered onto a spare.
+    shape = DP_SHAPES["P-ref"]
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal(shape).astype(np.float32)).to(device)
+    feed = {("l0", "d0"): x}
+    fns = mp_dp_fns(torch.ones(shape[1], device=device))
+    victim = "s6"  # an even step: on l1
+    kill = plan.lower("multiprocess", placement=split, _kill_at_step=victim, **mp_opts).compile(fns)
+    t0 = time.monotonic()
+    try:
+        kill.run(initial_payloads=dict(feed))
+    except WorkerFailedError as e:
+        if (e.location, e.step) != ("l1", victim):
+            fail(f"a kill at {victim} surfaced as {e!r}, naming {(e.location, e.step)}")
+        out["kill"] = {"error": str(e), "seconds": time.monotonic() - t0}
+        print(f"[17] kill at {victim}: {e} ({out['kill']['seconds']:.1f} s)")
+    else:
+        fail(f"a run whose worker was killed at {victim} did not fail")
+    fleet_gone("the killed run", mp, kill.program.last_pids.values())
+    spare = plan.lower("multiprocess", placement=split, _kill_at_step=victim, recover="spare", spares=["spare0"],
+                       **mp_opts).compile(fns)
+    rec = spare.run(initial_payloads=dict(feed))
+    cleanres = plan.lower("threaded", placement=split, timeout_s=THREADED_TIMEOUT_S).compile(fns).run(
+        initial_payloads=dict(feed))
+    renamed = {("spare0" if loc == "l1" else loc): d for loc, d in cleanres.data.items()}
+    # The recovery fleet starts from the coordinator's merged store, which
+    # holds the first fleet's reports too.
+    stores_equal(torch, "P-ref/split recovered onto a spare", without_reports(rec.data), renamed)
+    recs = rec.stats["recoveries"]
+    if len(recs) != 1 or recs[0]["renaming"] != {"l1": "spare0"} or recs[0]["failed_step"] != victim:
+        fail(f"the spare recovery recorded {recs}")
+    fleet_gone("the recovered run", mp, spare.program.last_pids.values())
+    out["spare"] = {"recoveries": recs, "pids": {str(k): v for k, v in spare.program.last_pids.items()}}
+    print(f"[17] the same kill with recover='spare': {recs[0]['renaming']}, completed steps "
+          f"{recs[0]['completed_steps']} replayed, the store equal to the clean run's under the renaming")
+
+    # (d) fork after CUDA: a forked worker cannot use its parent's context.
+    if device == "cuda":
+        timeout = 30.0
+        forked = plan.lower("multiprocess", placement=split, start_method="fork", timeout_s=timeout,
+                            ack_timeout=MP_ACK_TIMEOUT_S).compile(fns)
+        t0 = time.monotonic()
+        try:
+            forked.run(initial_payloads=dict(feed))
+        except WorkerFailedError as e:
+            secs = time.monotonic() - t0
+            if secs >= timeout or e.location is None or e.step is None:
+                fail(f"the forked run failed as {e!r} after {secs:.1f} s (timeout_s {timeout})")
+            out["fork"] = {"error": str(e), "location": e.location, "step": e.step, "seconds": secs}
+            print(f"[17] fork after CUDA: {e} after {secs:.2f} s (timeout_s {timeout:g})")
+        except BaseException as e:  # noqa: BLE001 - any other outcome fails the phase
+            fail(f"the forked run raised {e!r}, not a WorkerFailedError")
+        else:
+            fail("a forked run with CUDA payloads succeeded")
+        fleet_gone("the forked run", mp, forked.program.last_pids.values())
+    out["seconds"] = time.monotonic() - t_phase
+    print(f"[17] the multiprocess backend's phase took {out['seconds']:.1f} s")
+    return out
+
+
+# -- phase 18: the gateway, requests answered over HTTP --------------------------------
+
+
+def gw_tensor(seed, device: str):
+    """A request's GW_SHAPE fp32 tensor, made on ``device`` from its seed."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(int(seed))
+    return torch.randn(GW_SHAPE, generator=gen, device=device)
+
+
+def gw_ingest(device: str, inputs: dict) -> dict:
+    return {"d_ingest": int(inputs["d_seed"])}
+
+
+def gw_work(kind: str, device: str, inputs: dict) -> dict:
+    """``work_a``: rmsnorm of the request's tensor; ``work_b``: rmsnorm of
+    phase 7's mix of it; each answers the sum (a float: JSON)."""
+    import torch
+    from repro_torch.kernels import ops as kops
+
+    x = gw_tensor(inputs["d_ingest"], device)
+    if kind == "b":
+        x = 0.5 * x + 0.1 * torch.tanh(x)
+    y = kops.rmsnorm(x, torch.ones(x.shape[-1], device=device))
+    return {f"d_{kind}": float(y.sum())}
+
+
+def gw_merge(device: str, inputs: dict) -> dict:
+    return {"d_out": inputs["d_a"] + inputs["d_b"]}
+
+
+def gw_gate(event, inputs: dict) -> dict:
+    event.wait(GW_GATE_S)
+    return {}
+
+
+def gw_instance():
+    """The serving shape of ``examples/serve_batched.py`` (ingest -> work_a
+    || work_b -> merge on gateway, pool_a, pool_b), its sink answering a
+    number ``d_out``."""
+    from repro_torch.core.graph import DistributedWorkflowInstance, make_workflow
+
+    wf = make_workflow(
+        ["ingest", "work_a", "work_b", "merge"], ["p_seed", "p_ingest", "p_a", "p_b", "p_out"],
+        [("p_seed", "ingest"), ("ingest", "p_ingest"), ("p_ingest", "work_a"), ("p_ingest", "work_b"),
+         ("work_a", "p_a"), ("work_b", "p_b"), ("p_a", "merge"), ("p_b", "merge"), ("merge", "p_out")])
+    return DistributedWorkflowInstance(
+        workflow=wf, locations=frozenset({"gateway", "pool_a", "pool_b"}),
+        mapping={"ingest": ("gateway",), "work_a": ("pool_a",), "work_b": ("pool_b",), "merge": ("gateway",)},
+        data=frozenset({"d_seed", "d_ingest", "d_a", "d_b", "d_out"}),
+        placement={"d_seed": "p_seed", "d_ingest": "p_ingest", "d_a": "p_a", "d_b": "p_b", "d_out": "p_out"},
+        initial_data={"gateway": frozenset({"d_seed"})})
+
+
+def gw_steps(device: str) -> dict:
+    return {"ingest": functools.partial(gw_ingest, device), "work_a": functools.partial(gw_work, "a", device),
+            "work_b": functools.partial(gw_work, "b", device), "merge": functools.partial(gw_merge, device)}
+
+
+def phase_gateway(torch, smi: str, sku: str, device: str = "cuda", start_method: str = "spawn") -> dict:
+    """Phase 18: a ``WorkflowService`` behind a ``Gateway`` on 127.0.0.1
+    answering GW_REQUESTS requests from GW_CLIENTS client threads (see the
+    module doc).  Returns the numbers it prints and the kernels' launches."""
+    from repro_torch import swirl
+    from repro_torch.core.parser import dumps
+    from repro_torch.kernels import ops as kops
+    from repro_torch.serve import Gateway, GatewayClient, GatewayError, TenantConfig, WorkflowService
+    from repro_torch.serve.gateway import _jsonable
+
+    t_phase = time.monotonic()
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    text = dumps(swirl.trace(gw_instance()).system)
+    gate = threading.Event()
+    steps = gw_steps(device) | {"gate": functools.partial(gw_gate, gate)}
+    tenants = [TenantConfig("bulk", api_key="kb", max_concurrent=GW_CLIENTS, max_queue=GW_CLIENTS),
+               TenantConfig("tiny", api_key="kt", max_concurrent=1, max_queue=0)]
+    service = WorkflowService(steps, tenants=tenants, lower_options={"timeout_s": THREADED_TIMEOUT_S})
+    as_json = lambda v: json.loads(json.dumps(v, default=_jsonable))  # noqa: E731
+    norms = 2  # work_a and work_b
+    out = {"device": smi}
+    with Gateway(service) as gw:
+        with GatewayClient(gw.url, api_key="kb") as c:
+            fp = c.submit({"swirl": text})["fingerprint"]
+            c.run(fp, {"gateway:d_seed": GW_REQUESTS})  # warm: the first request on a cold card
+        answers, lat = {}, {}
+        errors = []
+
+        def client(k: int) -> None:
+            try:
+                with GatewayClient(gw.url, api_key="kb") as cl:
+                    for i in range(k, GW_REQUESTS, GW_CLIENTS):
+                        t0 = time.perf_counter()
+                        answers[i] = cl.run(fp, {"gateway:d_seed": i})
+                        lat[i] = (time.perf_counter() - t0) * 1e3
+            except BaseException as e:  # noqa: BLE001 - reported below
+                errors.append(e)
+
+        sync()
+        kops.reset_launch_counts()
+        threads = [threading.Thread(target=client, args=(k,)) for k in range(GW_CLIENTS)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(CHILD_TIMEOUT)
+        sync()
+        wall = time.perf_counter() - t0
+        counts = kops.launch_counts()
+        if errors or len(answers) != GW_REQUESTS:
+            fail(f"gateway: {len(answers)} of {GW_REQUESTS} requests answered; errors {errors[:3]}")
+        want = {"rmsnorm": norms * GW_REQUESTS, "flash_attention": 0, "decode_attention": 0}
+        if counts != want:
+            fail(f"gateway: {GW_REQUESTS} requests launched {counts}, not {want}")
+        for i in range(GW_REQUESTS):
+            inproc = as_json(service.run(fp, {"gateway:d_seed": i}))
+            if answers[i] != inproc or not isinstance(answers[i]["data"]["gateway"]["d_out"], float):
+                fail(f"gateway: request {i} answered {answers[i]} over HTTP and {inproc} in process")
+        x = gw_tensor(0, device)
+        check_close("gateway work_a = sum(rmsnorm(x))", torch.tensor(answers[0]["data"]["pool_a"]["d_a"]),
+                    ref_sum(torch, x), 1e-3)
+        # A tenant over its quota: its one slot held by a run that waits on an event.
+        with GatewayClient(gw.url, api_key="kt") as c:
+            gfp = c.submit({"dag": {"edges": {"gate": []}, "mapping": {"gate": ["gateway"]}}})["fingerprint"]
+        def hold() -> None:
+            with GatewayClient(gw.url, api_key="kt") as cl:
+                cl.run(gfp)
+
+        held = threading.Thread(target=hold)
+        held.start()
+        with GatewayClient(gw.url) as c:
+            for _ in range(500):
+                if c.healthz()["tenants"]["tiny"]["active"] == 1:
+                    break
+                time.sleep(0.01)
+            health = c.healthz()
+            metrics = c.metrics()
+        try:
+            with GatewayClient(gw.url, api_key="kt") as c:
+                c.run(gfp)
+        except GatewayError as e:
+            if e.status != 429 or not e.retry_after or e.retry_after < 1:
+                fail(f"gateway: a tenant over its quota got {e.status} (Retry-After {e.retry_after})")
+            out["over_quota"] = {"status": e.status, "retry_after": e.retry_after, "reason": e.error.get("reason")}
+        else:
+            fail("gateway: a tenant over its quota was admitted")
+        finally:
+            gate.set()
+            held.join(GW_GATE_S)
+        if health.get("status") != "ok" or "gateway_requests_total" not in metrics:
+            fail(f"gateway: /v1/healthz answered {health}, /v1/metrics without its request counter")
+        with GatewayClient(gw.url, api_key="kb") as c:
+            stats = c.stats()
+    ms = sorted(lat.values())
+    out |= {"requests": GW_REQUESTS, "clients": GW_CLIENTS, "seconds": wall, "requests_per_s": GW_REQUESTS / wall,
+            "p50_ms": ms[len(ms) // 2], "p99_ms": ms[min(len(ms) - 1, int(0.99 * len(ms)))],
+            "launches": counts, "counters": stats["counters"], "cache": stats["cache"]}
+    print(f"[18] gateway: {GW_REQUESTS} requests of {list(GW_SHAPE)} fp32 from {GW_CLIENTS} client threads over "
+          f"HTTP in {wall:.2f} s, {out['requests_per_s']:.1f} requests/s, p50 {out['p50_ms']:.2f} ms, p99 "
+          f"{out['p99_ms']:.2f} ms; every answer equal to the same request in process; rmsnorm launched "
+          f"{counts['rmsnorm']} times; over quota: {out['over_quota']}; {smi}")
+
+    # One request on the multiprocess backend: the same number back.
+    mp_service = WorkflowService(gw_steps(device), backend="multiprocess",
+                                 lower_options={"start_method": start_method, "timeout_s": MP_TIMEOUT_S})
+    with Gateway(mp_service) as gw, GatewayClient(gw.url) as c:
+        mfp = c.submit({"swirl": text})["fingerprint"]
+        t0 = time.perf_counter()
+        got = c.run(mfp, {"gateway:d_seed": 3})
+        secs = time.perf_counter() - t0
+    if mfp != fp or got != answers[3]:
+        fail(f"gateway on multiprocess answered {got}, not {answers[3]}")
+    out["multiprocess"] = {"seconds": secs, "answer": got["data"]["gateway"]["d_out"]}
+    print(f"[18] one request on multiprocess ({start_method}): d_out {got['data']['gateway']['d_out']!r}, the "
+          f"threaded service's number, in {secs:.2f} s (a fleet a request)")
+    out["phase_seconds"] = time.monotonic() - t_phase
+    print(f"[18] the gateway's phase took {out['phase_seconds']:.1f} s")
+    return out
+
+
+def ref_sum(torch, x):
+    """The plain version of ``work_a``'s answer: the sum of ``ref.rmsnorm_ref``."""
+    from repro_torch.kernels import ref
+
+    return ref.rmsnorm_ref(x, torch.ones(x.shape[-1], device=x.device)).sum().cpu()
+
+
 def fmt_ms(xs) -> str:
     return "[" + ", ".join(f"{x:.2f}" for x in xs) + "]"
 
@@ -3910,6 +4472,10 @@ def main() -> int:
                     help="only phase 15, the dry-run and the roofline, its result to OUT (a child process)")
     ap.add_argument("--threaded", metavar="OUT", type=Path,
                     help="only phase 16, the threaded backend, its result to OUT (a child process)")
+    ap.add_argument("--multiprocess", metavar="OUT", type=Path,
+                    help="only phase 17, the multiprocess backend, its result to OUT (a child process)")
+    ap.add_argument("--gateway", metavar="OUT", type=Path,
+                    help="only phase 18, the gateway over HTTP, its result to OUT (a child process)")
     opts = ap.parse_args()
     # One process makes and frees models of up to 34 GB and trains two more:
     # with fixed segments the freed memory splinters, and phase 11's jamba
@@ -3952,6 +4518,10 @@ def main() -> int:
         return child(torch, opts.dryrun, phase_dryrun)
     if opts.threaded is not None:
         return child(torch, opts.threaded, phase_threaded)
+    if opts.multiprocess is not None:
+        return child(torch, opts.multiprocess, phase_multiprocess)
+    if opts.gateway is not None:
+        return child(torch, opts.gateway, phase_gateway)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -4008,6 +4578,12 @@ def main() -> int:
 
     # -- 16. the threaded backend: one host thread per location, tensors on the card -------
     threaded = run_child("16", "--threaded", "the threaded backend")
+
+    # -- 17. the multiprocess backend: one OS process per location, tensors on the card ----
+    multiprocess = run_child("17", "--multiprocess", "the multiprocess backend")
+
+    # -- 18. the gateway: workflow requests answered over HTTP, steps on the card ----------
+    gateway = run_child("18", "--gateway", "the gateway")
 
     # -- 3. kernels vs plain -----------------------------------------------------
     bench = Bench(torch, sku)
@@ -4141,6 +4717,8 @@ def main() -> int:
                    for cell in DIST_CELLS},
                 **{f"step {cell}": dryrun[cell]["launches"][k] for cell in ("R-decode", "R-train")},
                 **{f"threaded {path}": c[k] for path, c in threaded["launches"].items()},
+                **{f"multiprocess {path}": c[k] for path, c in multiprocess["launches"].items()},
+                "gateway": gateway["launches"][k],
             },
         })
     print(json.dumps({"dataplane": dataplane}))
@@ -4153,6 +4731,8 @@ def main() -> int:
     print(json.dumps({"distribution": distribution}))
     print(json.dumps({"dryrun": dryrun}))
     print(json.dumps({"threaded": threaded}))
+    print(json.dumps({"multiprocess": multiprocess}))
+    print(json.dumps({"gateway": gateway}))
     print(f"kernels: {', '.join(r['name'] for r in record)}; {time.monotonic() - t_start:.1f} s in all")
     print(smi)
     print(json.dumps({"kernels": record}))

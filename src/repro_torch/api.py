@@ -21,13 +21,16 @@ End to end::
         .run()
     )
 
-Three backends resolve by name through :mod:`repro_torch.backends`:
+Four backends resolve by name through :mod:`repro_torch.backends`:
 ``torch``, which places each location on a device and runs on ``cuda``
 unless lowered with ``platform="cpu"``; ``inprocess``, the reference's
-thread-pool runtime with retry, speculation and checkpoint/restore; and
+thread-pool runtime with retry, speculation and checkpoint/restore;
 ``threaded``, one thread per location over a transport (the paper's
-execution model and the reference's default).  The last two place nothing:
-a step's tensors stay where the step put them.  As in the reference, every stage is a value: a
+execution model and the reference's default); and ``multiprocess``, one OS
+process per location group over a socket or shared-memory transport.  The
+last three place nothing: a step's tensors stay where the step put them
+(across processes they go through the host and are rebuilt on their
+device).  As in the reference, every stage is a value: a
 :class:`Plan` can be optimised twice with different rule sets, certified
 against the original system with the weak-barbed-bisimulation checker of
 :mod:`repro_torch.core.bisim` (Thm. 1), scheduled against a network cost
@@ -589,10 +592,14 @@ class Plan:
         preset) and ``objective=``.  Backend-specific ``options`` (the
         ``torch`` backend's ``devices``/``platform``/``fuse``/``max_rounds``,
         the ``threaded`` backend's channel fault injection and
-        ``transport``/``timeout_s``, and ``trace``/``policy``) are validated here, before any execution;
+        ``transport``/``timeout_s``, the ``multiprocess`` backend's
+        ``workers``/``transport``/``start_method``/``recover``, and
+        ``trace``/``policy``) are validated here, before any execution;
         a schedule report, when present, is handed down as the uniform
         ``schedule`` option (the ``torch`` backend maps each network group's
-        locations onto one contiguous block of devices).
+        locations onto one contiguous block of devices, and the
+        ``multiprocess`` backend pins each group's locations to one worker
+        process).
         """
         if isinstance(placement, str):
             if placement != "auto":
@@ -799,7 +806,8 @@ class Executable:
       any number of concurrent :meth:`run`/:meth:`run_many` calls on one
       compiled Executable;
     * the ``torch`` backend's runs (its captured CUDA graphs and their
-      static buffers) and the ``inprocess`` backend's (its snapshot slots)
+      static buffers), the ``inprocess`` backend's (its snapshot slots) and
+      the ``multiprocess`` backend's (its worker fleet and merged store)
       share program-level state, so each keeps the exclusive guard: a
       second overlapping run raises :class:`ConcurrentRunError` (compile
       another Executable from the same :class:`Lowered` to run

@@ -1,10 +1,12 @@
 """The port's backend registry.
 
 ``Plan.lower(backend="...")`` resolves names through this registry.  It is
-the port's own and holds three backends, ``inprocess`` (the reference
-trainer's, checkpointable), ``threaded`` (one thread per location over a
-transport, the reference's default) and ``torch`` (places each location on
-a CUDA device, fuses and traces); it never touches ``repro.backends``, whose
+the port's own and holds four backends, ``inprocess`` (the reference
+trainer's, checkpointable), ``multiprocess`` (one OS process per location
+group over a socket or shared-memory transport, checkpointable, with elastic
+recovery), ``threaded`` (one thread per location over a transport, the
+reference's default) and ``torch`` (places each location on a CUDA device,
+fuses and traces); it never touches ``repro.backends``, whose
 registry the reference's sweeps enumerate, and no entry point of the
 ``repro.backends`` group names one of them.
 Factories are zero-argument callables returning a :class:`Backend`; they are
@@ -22,6 +24,7 @@ from .base import (
     ExecutionResult,
     UnknownBackendError,
 )
+from .multiprocess import WorkerFailedError
 
 __all__ = [
     "Backend",
@@ -29,6 +32,7 @@ __all__ = [
     "BackendCapabilityError",
     "ExecutionResult",
     "UnknownBackendError",
+    "WorkerFailedError",
     "register_backend",
     "get_backend",
     "available_backends",
@@ -48,6 +52,7 @@ def _builtin(module: str) -> BackendFactory:
 
 _REGISTRY: dict[str, BackendFactory] = {
     "inprocess": _builtin("repro_torch.backends.inprocess"),
+    "multiprocess": _builtin("repro_torch.backends.multiprocess"),
     "threaded": _builtin("repro_torch.backends.threaded_backend"),
     "torch": _builtin("repro_torch.backends.torch_backend"),
 }

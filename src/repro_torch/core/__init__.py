@@ -65,6 +65,8 @@ from .optimizer import (
     REWRITE_RULES,
     REWRITE_RULES_TREE,
     OptimizationStats,
+    optimize,
+    optimize_spatial,
     rewrite_spatial,
     rewrite_spatial_tree,
     rewrite_system,
@@ -136,6 +138,8 @@ __all__ = [
     "REWRITE_RULES",
     "REWRITE_RULES_TREE",
     "OptimizationStats",
+    "optimize",
+    "optimize_spatial",
     "weak_barbed_bisimilar",
     "parse_system",
     "parse_trace",

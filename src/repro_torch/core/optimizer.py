@@ -142,6 +142,14 @@ def rewrite_system(w: WorkflowSystem) -> tuple[WorkflowSystem, OptimizationStats
     return fs.rebuild_system(), stats
 
 
+def optimize(w: WorkflowSystem) -> tuple[WorkflowSystem, OptimizationStats]:
+    """Deprecated shim for :func:`rewrite_system` (legacy free function)."""
+    from repro_torch._compat import warn_legacy
+
+    warn_legacy("repro_torch.core.optimize()", "swirl.trace(...).optimize()")
+    return rewrite_system(w)
+
+
 # ---------------------------------------------------------------------------
 # R3 — spatial-constraint deduplication (beyond the paper's Def. 15)
 # ---------------------------------------------------------------------------
@@ -267,6 +275,19 @@ def rewrite_spatial(
     fs = FlatSystem.from_system(w)
     stats = rewrite_r3(fs)
     return fs.rebuild_system(), stats
+
+
+def optimize_spatial(
+    w: WorkflowSystem,
+) -> tuple[WorkflowSystem, OptimizationStats]:
+    """Deprecated shim for :func:`rewrite_spatial` (legacy free function)."""
+    from repro_torch._compat import warn_legacy
+
+    warn_legacy(
+        "repro_torch.core.optimize_spatial()",
+        'swirl.trace(...).optimize(rules=("R1R2", "R3"))',
+    )
+    return rewrite_spatial(w)
 
 
 #: The rule sets :meth:`repro_torch.api.Plan.optimize` can apply, in canonical

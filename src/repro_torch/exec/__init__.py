@@ -3,9 +3,10 @@
 :func:`lower_system` turns an (optimised) workflow system into an
 :class:`ExecProgram`: one :class:`LocationProgram` per location holding a
 program-order array of resolved ``SEND``/``RECV``/``EXEC`` ops plus a flat
-control skeleton.  Every backend of the port interprets this one form, and
+control skeleton.  Every backend of the port interprets this one form,
 :mod:`~repro_torch.exec.emit` turns it into standalone per-location Python
-source (paper §5).
+source (paper §5), and :mod:`~repro_torch.exec.elastic` renames its
+locations in place for the ``multiprocess`` backend's recovery.
 """
 
 from .program import (
@@ -22,6 +23,7 @@ from .program import (
 from .interp import Cursor, Deadline, StepGuard
 from .policy import FaultPolicy, RunDeadlineExceeded, StepTimeoutError
 from .emit import emit_location_source, emit_program_sources
+from .elastic import rename_program, resimulate
 
 __all__ = [
     "Deadline",
@@ -41,4 +43,6 @@ __all__ = [
     "Cursor",
     "emit_location_source",
     "emit_program_sources",
+    "rename_program",
+    "resimulate",
 ]

@@ -13,9 +13,7 @@
   (in-memory queues, ack-based sockets, shared memory) under the threaded
   backend.
 * :mod:`~repro_torch.workflow.fault`    — retry/speculation/heartbeat policies.
-
-The reference's ``workflow.elastic`` (location renaming, recovery,
-rebalance) is not ported yet.
+* :mod:`~repro_torch.workflow.elastic`  — location renaming, recovery, rebalance.
 """
 
 from .channels import Channel, ChannelClosed, ChannelRegistry
@@ -42,6 +40,13 @@ from .fault import (
 )
 from .runtime import Checkpoint, Runtime, RunStats, WorkflowDeadlock
 from .threaded import ThreadedProgramRuntime, ThreadedRuntime
+from .elastic import (
+    fold_payloads,
+    plan_recovery,
+    rebalance,
+    recover_checkpoint,
+    rename_locations,
+)
 
 __all__ = [
     "AckTimeout",
@@ -70,4 +75,9 @@ __all__ = [
     "FlakyFn",
     "SlowFn",
     "SlowOnceAcrossProcesses",
+    "rename_locations",
+    "fold_payloads",
+    "recover_checkpoint",
+    "plan_recovery",
+    "rebalance",
 ]

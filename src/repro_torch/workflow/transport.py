@@ -2,7 +2,9 @@
 
 A copy of ``repro/workflow/transport.py``, with the port's own registry
 (:func:`register_transport` / :func:`get_transport`), which never holds the
-reference's classes.
+reference's classes, and one change to the socket wire: a frame or an
+out-of-band buffer longer than :data:`WIRE_PART` goes as parts of at most
+that size (:func:`send_pickled`, :func:`recv_pickled`).
 
 A :class:`Transport` carries SWIRL COMM messages between locations, one
 logically independent FIFO per ``(src, dst, port)`` endpoint.  The threaded
@@ -101,6 +103,48 @@ _POLL_S = 0.05
 
 #: AF_UNIX socket paths are limited to ~108 bytes; stay well under it.
 _MAX_UNIX_PATH = 90
+
+#: The longest message the socket wire writes.  ``Connection.recv_bytes``
+#: reads a message into a fresh buffer of all that is left of it on every
+#: read, and on a host whose kernel pays for a large allocation by its size
+#: (the H100 machines' sandboxed kernel) a long message then moves at a few
+#: MB/s: 600 MB took 157 s there.  Longer frames and buffers go as parts.
+WIRE_PART = 1 << 20
+
+
+def _send_parts(conn, buf) -> None:
+    """Write ``buf`` as messages of at most :data:`WIRE_PART` bytes (none
+    for an empty buffer)."""
+    view = memoryview(buf).cast("B")
+    for i in range(0, view.nbytes, WIRE_PART):
+        conn.send_bytes(view[i:i + WIRE_PART])
+
+
+def _recv_parts(conn, n: int) -> bytearray:
+    """Read the ``n`` bytes that :func:`_send_parts` wrote."""
+    buf = bytearray(n)
+    view, pos = memoryview(buf), 0
+    while pos < n:
+        pos += conn.recv_bytes_into(view, pos)
+    return buf
+
+
+def send_pickled(conn, data: bytes) -> None:
+    """Write one pickled frame: one message, or a ``("parts", n)`` header
+    and its parts when it is longer than :data:`WIRE_PART`."""
+    if len(data) <= WIRE_PART:
+        conn.send_bytes(data)
+        return
+    conn.send_bytes(pickle.dumps(("parts", len(data)), pickle.HIGHEST_PROTOCOL))
+    _send_parts(conn, data)
+
+
+def recv_pickled(conn) -> Any:
+    """Read and unpickle one frame written by :func:`send_pickled`."""
+    obj = pickle.loads(conn.recv_bytes())
+    if isinstance(obj, tuple) and len(obj) == 2 and obj[0] == "parts":
+        obj = pickle.loads(_recv_parts(conn, obj[1]))
+    return obj
 
 
 class AckTimeout(ChannelClosed):
@@ -482,39 +526,31 @@ class SocketTransport(Transport):
             buffer_callback=buffers.append,
         )
         if not buffers:
-            conn.send_bytes(meta)
+            send_pickled(conn, meta)
             return
         try:
             raws = [b.raw() for b in buffers]
         except BufferError:  # non-contiguous exotic buffer — inline it
-            conn.send_bytes(pickle.dumps(frame, pickle.HIGHEST_PROTOCOL))
+            send_pickled(conn, pickle.dumps(frame, pickle.HIGHEST_PROTOCOL))
             return
         header = ("oob", [r.nbytes for r in raws], meta)
-        conn.send_bytes(pickle.dumps(header, pickle.HIGHEST_PROTOCOL))
+        send_pickled(conn, pickle.dumps(header, pickle.HIGHEST_PROTOCOL))
         for r in raws:
-            if r.nbytes:  # the reader skips empty parts — mirror it
-                conn.send_bytes(r)
+            _send_parts(conn, r)  # nothing for an empty buffer: the reader skips it
 
     @staticmethod
     def _recv_frame(conn) -> Any:
         """Read one frame; reassemble out-of-band multipart segments.
 
         Each out-of-band segment lands in a fresh writable ``bytearray``
-        via ``recv_bytes_into`` and the reconstructed arrays view those
-        buffers directly — the receive side pays exactly one copy (kernel
-        socket buffer → bytearray), not pickle-decode plus array-build.
+        via ``recv_bytes_into``, part by part, and the reconstructed arrays
+        view those buffers directly — not pickle-decode plus array-build.
         """
-        obj = pickle.loads(conn.recv_bytes())
+        obj = recv_pickled(conn)
         if not (isinstance(obj, tuple) and obj and obj[0] == "oob"):
             return obj
         _, sizes, meta = obj
-        bufs = []
-        for n in sizes:
-            buf = bytearray(n)
-            if n:
-                conn.recv_bytes_into(memoryview(buf))
-            bufs.append(buf)
-        return pickle.loads(meta, buffers=bufs)
+        return pickle.loads(meta, buffers=[_recv_parts(conn, n) for n in sizes])
 
     # -- payload hooks (overridden by SharedMemoryTransport) -----------------
 

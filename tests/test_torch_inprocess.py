@@ -37,6 +37,7 @@ from repro.workflow import fault as jfault
 from repro_torch import swirl as tswirl
 from repro_torch.backends import get_backend
 from repro_torch.core.parser import dumps as t_dumps
+from repro_torch.core.randgen import random_layered_instance as t_random_layered_instance
 from repro_torch.core.translate import genomes_1000 as t_genomes
 from repro_torch.exec import central as tcentral
 from repro_torch.workflow import Checkpoint, RunStats, WorkflowDeadlock
@@ -127,7 +128,7 @@ def test_random_dags_give_equal_stores_and_stats(chunk, rules):
 @pytest.mark.parametrize("n,seed", RANDGEN)
 def test_randgen_instances_give_equal_stores_and_stats(n, seed):
     inst = random_layered_instance(n, seed=seed)
-    jp, tp = plans(inst, to_port(inst), RULES)
+    jp, tp = plans(inst, t_random_layered_instance(n, seed=seed), RULES)
     assert_same_run(*run_both(jp, tp, identity_step_fns(inst)))
 
 
@@ -254,7 +255,7 @@ def ckpt_case(name: str):
         tinst = to_port(jinst)
     elif kind == "randgen":
         jinst = random_layered_instance(int(arg), seed=5)
-        tinst = to_port(jinst)
+        tinst = t_random_layered_instance(int(arg), seed=5)
     else:
         jinst, tinst = j_genomes(**GENOMES[arg]), t_genomes(**GENOMES[arg])
         init = genomes_init(jinst)

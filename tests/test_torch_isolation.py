@@ -72,6 +72,13 @@ THREADED = ("repro_torch._compat", "repro_torch.core.compile", "repro_torch.exec
             "repro_torch.workflow.threaded", "repro_torch.workflow.runtime",
             "repro_torch.backends.threaded_backend")
 
+# The multiprocess backend's slice: elastic recovery, the random instance
+# generator and the serving layer, which it must reach too.
+MULTIPROCESS = ("repro_torch.backends.multiprocess", "repro_torch.exec.elastic",
+                "repro_torch.workflow.elastic", "repro_torch.core.randgen", "repro_torch.serve",
+                "repro_torch.serve.admission", "repro_torch.serve.cache", "repro_torch.serve.client",
+                "repro_torch.serve.gateway", "repro_torch.serve.service", "repro_torch.serve.submission")
+
 
 def test_port_imports_no_jax_and_no_repro():
     out = subprocess.run(
@@ -83,7 +90,8 @@ def test_port_imports_no_jax_and_no_repro():
     n_modules = int(out.stdout.split()[0])
     assert n_modules >= 15  # every module of the port was imported
     imported = set(out.stdout.splitlines()[1].split())
-    walked = set(TRAINING + MOE + RECURRENT + FAMILIES + INPROCESS + DISTRIBUTION + DRYRUN + THREADED)
+    walked = set(TRAINING + MOE + RECURRENT + FAMILIES + INPROCESS + DISTRIBUTION + DRYRUN + THREADED
+                 + MULTIPROCESS)
     assert walked <= imported, sorted(walked - imported)
 
 

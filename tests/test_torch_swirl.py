@@ -211,8 +211,9 @@ def test_unported_lowering_options_raise_the_unknown_option_error(option):
 
 def test_unported_stages_raise_by_name():
     """What the port refused by name before its trace, schedule and certify
-    slice now runs; a bad placement string and every other backend name are
-    still refused."""
+    slice now runs, and ``multiprocess`` lowers since its own slice; a bad
+    placement string and every backend name the port has not are still
+    refused."""
     plan = _plan()
     auto = plan.lower("torch", placement="auto", platform="cpu")
     assert auto.plan.schedule_report is not None
@@ -226,20 +227,25 @@ def test_unported_stages_raise_by_name():
     traced = plan.lower("torch", trace=True, platform="cpu").compile(fns).run()
     report = plan.profile(traced)
     assert report.backend == "torch" and report.drifts
-    for name in ("jax", "multiprocess", "nope"):
-        with pytest.raises(UnknownBackendError, match="available: \\('inprocess', 'threaded', 'torch'\\)"):
+    assert plan.lower("multiprocess").backend_name == "multiprocess"
+    for name in ("jax", "nope"):
+        with pytest.raises(UnknownBackendError,
+                           match="available: \\('inprocess', 'multiprocess', 'threaded', 'torch'\\)"):
             plan.lower(name)
 
 
 def test_registry_is_the_ports_own():
-    assert available_backends() == ("inprocess", "threaded", "torch")
+    assert available_backends() == ("inprocess", "multiprocess", "threaded", "torch")
     _plan().lower("torch", platform="cpu")
     _plan().lower("inprocess")
     _plan().lower("threaded")
+    _plan().lower("multiprocess")
     assert "torch" not in jbackends._REGISTRY
     assert "torch" not in jbackends.available_backends()
+    assert jbackends.available_backends() == ("inprocess", "jax", "multiprocess", "threaded")
     assert jbackends.get_backend("inprocess").__module__ == "repro.backends.inprocess"
     assert jbackends.get_backend("threaded").__module__ == "repro.backends.threaded_backend"
+    assert jbackends.get_backend("multiprocess").__module__ == "repro.backends.multiprocess"
 
 
 def test_default_platform_is_cuda_and_raises_without_it(monkeypatch):

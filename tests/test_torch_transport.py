@@ -510,6 +510,61 @@ def test_tensor_payloads_spill_to_pickle_on_shm_and_socket(tmp_path):
             t.close()
 
 
+@pytest.mark.parametrize("name", ["socket", "shm"])
+def test_long_frames_and_buffers_go_in_parts(tmp_path, monkeypatch, name):
+    """A frame or out-of-band buffer longer than ``WIRE_PART`` crosses the
+    socket wire as parts of at most that size, and arrives whole: an array
+    (out of band), a tensor (in the pickle), an empty array and a frame
+    just at the limit."""
+    from repro_torch.workflow import transport as ttransport
+
+    from multiprocessing.connection import Connection
+
+    monkeypatch.setattr(ttransport, "WIRE_PART", 1000)
+    sizes = []
+    real = Connection.send_bytes
+
+    def counting(self, buf):
+        sizes.append(memoryview(buf).nbytes)
+        return real(self, buf)
+
+    monkeypatch.setattr(Connection, "send_bytes", counting)
+    payloads = [np.arange(3000, dtype=np.float64), torch.arange(2500, dtype=torch.float32).reshape(50, 50),
+                np.zeros(0), b"x" * 900]
+    t = TRANSPORTS[name].conformance(str(tmp_path / name), LOCATIONS)
+    try:
+        for i, x in enumerate(payloads):
+            t.send(EP, f"x{i}", x)
+            got = t.recv(EP, timeout=RECV_S).payload
+            if isinstance(x, torch.Tensor):
+                assert torch.equal(got, x)
+            elif isinstance(x, np.ndarray):
+                assert np.array_equal(got, x) and got.dtype == x.dtype
+            else:
+                assert got == x
+    finally:
+        t.close()
+    assert sizes and max(sizes) <= 1000
+
+
+def test_long_control_messages_of_the_multiprocess_backend_go_in_parts(monkeypatch):
+    from repro_torch.backends import multiprocess as tmp
+    from repro_torch.workflow import transport as ttransport
+
+    monkeypatch.setattr(ttransport, "WIRE_PART", 512)
+    a, b = multiprocessing.Pipe()
+    msg = ("done", 0, {"l0": {"d": torch.arange(4096, dtype=torch.float32)}})
+    done = threading.Thread(target=tmp._send_msg, args=(a, msg))
+    done.start()  # a long message blocks until it is read
+    got = tmp._recv_msg(b)
+    done.join(RECV_S)
+    assert got[:2] == ("done", 0) and torch.equal(got[2]["l0"]["d"], msg[2]["l0"]["d"])
+    tmp._send_msg(a, ("ready", 1, 2, 3.0))
+    assert tmp._recv_msg(b) == ("ready", 1, 2, 3.0)
+    a.close()
+    b.close()
+
+
 def test_the_in_memory_wire_hands_over_the_very_object():
     t = InMemoryTransport()
     x = torch.ones(3)
