@@ -1,0 +1,7 @@
+"""Share of the traced training iteration with no device operation running."""
+
+from bench.harness.readers import idle_share
+
+
+def read(record):
+    return idle_share(record)
