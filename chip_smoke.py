@@ -1303,6 +1303,7 @@ def profile_decode(torch, model, params, prompts, smi: str, steps: int = 8, tag:
 
     from repro_torch.kernels import rmsnorm as rms_module
     from repro_torch.launch.steps import make_serve_step
+    from repro_torch.obs.events import STEP_SPANS
 
     step = make_serve_step(model)
     with torch.inference_mode():
@@ -1338,10 +1339,11 @@ def profile_decode(torch, model, params, prompts, smi: str, steps: int = 8, tag:
     avgs = prof.key_averages()
     # Device-side events only (the kernels and copies themselves): CPU ops
     # also carry their kernels' device time, which would count it twice, and
-    # so does the wrapper's span, which the profiler also draws on the device.
+    # so do the wrapper's span and the program's step spans, which the
+    # profiler also draws on the device.
     dev = [
         (e.key, e.device_time_total / 1e3 / steps, e.count / steps)
-        for e in avgs if e.device_type == DeviceType.CUDA and e.key != "rmsnorm wrapper"
+        for e in avgs if e.device_type == DeviceType.CUDA and e.key not in ("rmsnorm wrapper", *STEP_SPANS)
     ]
     dev.sort(key=lambda d: -d[1])
     busy_ms = sum(d[1] for d in dev)
@@ -1929,11 +1931,14 @@ def device_events(prof) -> list:
     """``(name, ms)`` of each device event (kernel, copy, set) that ``prof``
     recorded, read from its Kineto results: ``key_averages()`` first builds a
     Python object an event, which took minutes for TR-xlstm's 843,000 device
-    ops and their launches (PERF.md, section 6)."""
+    ops and their launches (PERF.md, section 6).  The program's step spans,
+    drawn on the device too, are left out."""
     from torch.autograd import DeviceType
 
+    from repro_torch.obs.events import STEP_SPANS
+
     return [(e.name(), e.duration_ns() / 1e6) for e in prof.profiler.kineto_results.events()
-            if e.device_type() == DeviceType.CUDA]
+            if e.device_type() == DeviceType.CUDA and e.name() not in STEP_SPANS]
 
 
 def step_times(torch, tr, it: int) -> dict:

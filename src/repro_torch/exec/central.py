@@ -34,6 +34,7 @@ from typing import Any, Mapping
 
 from repro_torch.core.compile import StepMeta
 from repro_torch.core.parser import dumps
+from repro_torch.obs.events import active
 
 from .interp import (
     Cursor,
@@ -62,6 +63,11 @@ class ProgramRuntime:
     steps already finished in a restored snapshot — their recorded outputs
     (harvested from ``initial_payloads``) are replayed instead of
     re-executing the step body.
+
+    Spans go to ``recorder``; a run given none records its ``exec`` spans
+    (no comm or policy rows) into the process recorder while a
+    ``torch.profiler`` records (:func:`repro_torch.obs.active`), and its
+    result has no profile.
     """
 
     def __init__(
@@ -110,6 +116,9 @@ class ProgramRuntime:
         self.heartbeat = heartbeat or HeartbeatMonitor()
         self.stats = RunStats()
         self.recorder = recorder
+        # Where the exec spans go: the run's own recorder, or (set by
+        # ``run``) the process recorder while a profiler records.
+        self._exec_spans = recorder
         self.completed_execs: set[str] = set(completed)
         self._replayable = frozenset(completed)
         self._lock = threading.Lock()
@@ -248,8 +257,8 @@ class ProgramRuntime:
             )
         with self._lock:
             self.stats.exec_log.append((op.step, leader, dt))
-        if self.recorder is not None:
-            record_exec_fire(self.recorder, op, t0, t0 + dt)
+        if self._exec_spans is not None:
+            record_exec_fire(self._exec_spans, op, t0, t0 + dt)
         for l in op.locations:
             self.heartbeat.beat(l)
         return {d: out[d] for d in op.outputs}
@@ -278,6 +287,8 @@ class ProgramRuntime:
         from repro_torch.workflow.runtime import WorkflowDeadlock
 
         t_start = time.monotonic()
+        if self.recorder is None:
+            self._exec_spans = active()
         since_ckpt = 0
         deadline = Deadline(
             self.policy.deadline_s if self.policy is not None else None

@@ -7,7 +7,9 @@ structure and each leaf its param's dtype (bf16 for bf16 params), and a
 param that the loss does not reach gets zeros, as in JAX.  On DTensors
 the greedy steps gather the logits' vocab dim before ``argmax``: DTensor's
 ``argmax`` over a sharded dim failed on the ``(2, 16, 16)`` mesh at one
-sequence a rank.
+sequence a rank.  While a profiler records, a prefill and a decode step
+are the spans ``serve.prefill`` and ``serve.decode``
+(:func:`repro_torch.obs.step_span`), argmax included.
 
 The dry-run's stand-ins for ``jax.ShapeDtypeStruct`` trees are tensors on
 the ``meta`` device: shapes and dtypes, no storage.  :func:`abstract_params`
@@ -27,6 +29,7 @@ from repro_torch._bridge import tree_leaves, tree_unflatten
 from repro_torch.configs.shapes import Shape
 from repro_torch.models import Model, ModelConfig
 from repro_torch.models.hints import unshard
+from repro_torch.obs.events import step_span
 from repro_torch.optim import AdamWConfig, AdamWState
 from repro_torch.optim import adamw
 
@@ -65,11 +68,12 @@ def make_grad_step(model: Model):
 
 def make_prefill_step(model: Model):
     def prefill_step(params: Params, batch: Params, cache: Params):
-        logits, cache = model.prefill(
-            params, batch["tokens"], cache,
-            src_embeds=batch.get("src_embeds"), patch_embeds=batch.get("patch_embeds"),
-        )
-        next_tok = torch.argmax(unshard(logits[:, -1], [-1]), dim=-1).to(torch.int32)
+        with step_span("serve.prefill"):
+            logits, cache = model.prefill(
+                params, batch["tokens"], cache,
+                src_embeds=batch.get("src_embeds"), patch_embeds=batch.get("patch_embeds"),
+            )
+            next_tok = torch.argmax(unshard(logits[:, -1], [-1]), dim=-1).to(torch.int32)
         return next_tok, cache
 
     return prefill_step
@@ -79,8 +83,9 @@ def make_serve_step(model: Model):
     """One greedy decode step: token [B, 1] → (next token [B, 1] int32, cache)."""
 
     def serve_step(params: Params, cache: Params, token: torch.Tensor):
-        logits, cache = model.decode_step(params, token, cache)
-        next_tok = torch.argmax(unshard(logits[:, -1], [-1]), dim=-1, keepdim=True).to(torch.int32)
+        with step_span("serve.decode"):
+            logits, cache = model.decode_step(params, token, cache)
+            next_tok = torch.argmax(unshard(logits[:, -1], [-1]), dim=-1, keepdim=True).to(torch.int32)
         return next_tok, cache
 
     return serve_step

@@ -20,6 +20,10 @@ VJPs behind them (:class:`repro_torch.kernels.ops.KernelWithPlainGrad`);
 reference's layout and leaf names (``params_to_jax``), so either package
 resumes from the other's.
 
+While a profiler records, an iteration is the span ``train.iteration``, the
+plan's compile inside it ``plan.compile`` (:func:`repro_torch.obs.step_span`),
+and its run records an ``exec`` span a step into the process recorder.
+
 Usage::
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --smoke \\
@@ -42,6 +46,7 @@ from repro_torch.configs import get_config
 from repro_torch.core.translate import TrainPipelineTranslator
 from repro_torch.data import SyntheticLM
 from repro_torch.models import Model, ModelConfig, params_from_jax, params_to_jax
+from repro_torch.obs.events import step_span
 from repro_torch.optim import AdamWConfig
 from repro_torch.optim import adamw as adamw_mod
 from repro_torch.optim.compress import allreduce_mean, compress, decompress
@@ -220,9 +225,12 @@ class Trainer:
             payloads[(f"pod{i}", f"opt_{i}")] = self.opt_state
         # ``shard_i``/``fwdbwd_i`` read iter/params from the pod's local data
         # scope: declare them as part of each pod's initial D set.
-        result = self.lowered.compile(self.step_fns()).run(initial_payloads=payloads)
-        state = result.payload("pod0", "state_0")
-        self.params, self.opt_state = state["params"], state["opt"]
+        with step_span("train.iteration"):
+            with step_span("plan.compile"):
+                exe = self.lowered.compile(self.step_fns())
+            result = exe.run(initial_payloads=payloads)
+            state = result.payload("pod0", "state_0")
+            self.params, self.opt_state = state["params"], state["opt"]
         return state["metrics"]
 
 

@@ -26,7 +26,11 @@ so tied probabilities go to the lower expert index first, as
 choice adds a zero row to slot ``C - 1`` of its expert, as the reference's
 ``.at[].add(mode="drop")`` does, and never overwrites the token kept there.
 The three expert products are ``torch.bmm`` calls, as the reference leaves
-its ``einsum``s to XLA.
+its ``einsum``s to XLA.  While a profiler records, the stages are the spans
+``model.moe.route`` (router, softmax, top-k, slots and the aux loss),
+``.dispatch`` (the scatter), ``.experts`` (the three ``bmm``), ``.combine``
+(the gather and the weighted sum) and ``.shared``
+(:func:`repro_torch.obs.span`).
 
 H2 (hints): :func:`apply_moe_sharded` is the reference's expert-local
 dispatch, which the model takes under ``set_hints``.  Each (dp, tp) rank
@@ -49,6 +53,8 @@ from typing import Any, NamedTuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.obs.events import span
 
 from .config import ModelConfig
 from .hints import DTensor, pin, replicated_like, shard_map, unshard
@@ -164,32 +170,37 @@ def apply_moe(cfg: ModelConfig, p: Params, x: torch.Tensor) -> tuple[torch.Tenso
     b, l, d = x.shape
     t, k = b * l, m.top_k
     xf = pin(unshard(x, [1]).reshape(t, d))  # flattening a sharded L: see hints.matmul
-    r = route(cfg, p, xf)
-    aux = aux_loss(cfg, r)
+    with span("model.moe.route"):
+        r = route(cfg, p, xf)
+        aux = aux_loss(cfg, r)
 
     cap = moe_capacity(cfg, t)
-    flat_e = r.experts.reshape(t * k)
-    rows = flat_e * cap + torch.where(r.keep, r.slot, cap - 1)  # rows of [E·C, d]
+    with span("model.moe.dispatch"):
+        flat_e = r.experts.reshape(t * k)
+        rows = flat_e * cap + torch.where(r.keep, r.slot, cap - 1)  # rows of [E·C, d]
 
-    # Scatter tokens into [E, C, d]; dropped choices add zero rows.
-    xk = xf[:, None, :].expand(t, k, d).reshape(t * k, d)  # choice-major: row t·k + j is token t
-    contrib = torch.where(r.keep[:, None], xk, 0.0)
-    buf = replicated_like(torch.zeros((m.n_experts * cap, d), dtype=x.dtype, device=x.device), x)
-    buf = _on_replicas(lambda b, i, c: b.index_add(0, i, c), buf, rows, contrib).view(m.n_experts, cap, d)
+        # Scatter tokens into [E, C, d]; dropped choices add zero rows.
+        xk = xf[:, None, :].expand(t, k, d).reshape(t * k, d)  # choice-major: row t·k + j is token t
+        contrib = torch.where(r.keep[:, None], xk, 0.0)
+        buf = replicated_like(torch.zeros((m.n_experts * cap, d), dtype=x.dtype, device=x.device), x)
+        buf = _on_replicas(lambda b, i, c: b.index_add(0, i, c), buf, rows, contrib).view(m.n_experts, cap, d)
 
     # Batched expert gated MLP over the expert axis.
-    h = F.silu(torch.bmm(buf, p["gate"])) * torch.bmm(buf, p["up"])
-    out_buf = torch.bmm(h, p["down"]).view(m.n_experts * cap, d)  # [E·C, d]
+    with span("model.moe.experts"):
+        h = F.silu(torch.bmm(buf, p["gate"])) * torch.bmm(buf, p["up"])
+        out_buf = torch.bmm(h, p["down"]).view(m.n_experts * cap, d)  # [E·C, d]
 
     # Gather back and combine.
-    fetched = _on_replicas(lambda o, i: o.index_select(0, i), out_buf, rows)  # [T·k, d]
-    fetched = torch.where(r.keep[:, None], fetched, 0.0)
-    yk = fetched.view(t, k, d) * r.weights[..., None].to(x.dtype)
-    y = torch.sum(yk, dim=1)
+    with span("model.moe.combine"):
+        fetched = _on_replicas(lambda o, i: o.index_select(0, i), out_buf, rows)  # [T·k, d]
+        fetched = torch.where(r.keep[:, None], fetched, 0.0)
+        yk = fetched.view(t, k, d) * r.weights[..., None].to(x.dtype)
+        y = torch.sum(yk, dim=1)
 
     if "shared" in p:
         sh = p["shared"]
-        y = y + linear(sh["down"], F.silu(linear(sh["gate"], xf)) * linear(sh["up"], xf))
+        with span("model.moe.shared"):
+            y = y + linear(sh["down"], F.silu(linear(sh["gate"], xf)) * linear(sh["up"], xf))
     return y.reshape(b, l, d), aux
 
 

@@ -8,6 +8,10 @@ distributed execution trace is a first-class object:
 * :class:`TraceRecorder` / :class:`SpanEvent` — low-overhead span capture
   recorded by the ``torch`` backend (``lower(..., trace=True)``), in
   the reference backends' span schema;
+* :func:`active` / :func:`span` / :func:`step_span` / :func:`take` /
+  :func:`unix_ns` — the process recorder, which takes the program's own
+  spans while a ``torch.profiler`` records, and its clock's map onto the
+  profiler's;
 * :class:`RunProfile` — the structured artifact on every traced result
   (``result.profile``), exportable as Perfetto-loadable Chrome trace JSON;
 * :func:`align` / :class:`ProfileReport` — predicted-vs-actual drift
@@ -19,8 +23,13 @@ distributed execution trace is a first-class object:
 from repro_torch.obs.events import (
     SpanEvent,
     TraceRecorder,
+    active,
     current_trace_id,
     payload_nbytes,
+    span,
+    step_span,
+    take,
+    unix_ns,
 )
 from repro_torch.obs.export import (
     chrome_trace,
@@ -40,10 +49,15 @@ __all__ = [
     "SpanEvent",
     "StepDrift",
     "TraceRecorder",
+    "active",
     "align",
     "chrome_trace",
     "current_trace_id",
     "payload_nbytes",
+    "span",
+    "step_span",
+    "take",
+    "unix_ns",
     "validate_chrome_trace",
     "write_chrome_trace",
 ]

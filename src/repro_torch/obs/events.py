@@ -21,21 +21,41 @@ priority order):
    ``t_zero=0.0`` (absolute worker-monotonic timestamps), ship drained
    batches over the control pipe, and the coordinator :meth:`absorb`\\ s
    them with the clock offset measured on the ready/go handshake.
+
+Beside the recorders a run is given, one process recorder takes the
+program's own spans (kind ``span``: serving steps, MoE stages, the int8
+sync, the trainer and its plan) and the ``exec`` spans of runs lowered
+without ``trace``, but only while a ``torch.profiler`` records:
+:func:`active` returns it then and ``None`` otherwise, and :func:`span` /
+:func:`step_span` cost an attribute read and a test when it is off.  Each
+profiler session starts it empty, so it holds one session's rows at most.
+A span row's ``location`` is the recording thread's native id, the
+``tid`` the profiler's trace gives that thread, and the recorder's
+``anchor`` maps its raw stamps onto Unix time, the profiler's clock.
 """
 
 from __future__ import annotations
 
+import contextlib
 import sys
 import threading
 import time
 from contextvars import ContextVar
 from typing import Any, Iterable, NamedTuple
 
+from torch.autograd import profiler as _torch_profiler
+
 __all__ = [
+    "STEP_SPANS",
     "SpanEvent",
     "TraceRecorder",
+    "active",
     "current_trace_id",
     "payload_nbytes",
+    "span",
+    "step_span",
+    "take",
+    "unix_ns",
 ]
 
 #: Per-request trace id, set by the gateway for the duration of a request
@@ -46,8 +66,14 @@ current_trace_id: ContextVar[str | None] = ContextVar(
 
 #: Span kinds.  ``exec``/``send``/``recv`` mirror the three exec-IR op
 #: types; ``phase`` covers compile-pipeline stages (trace/schedule/lower/
-#: compile) recorded by :mod:`repro_torch.api`.
-KINDS = ("exec", "send", "recv", "phase")
+#: compile) recorded by :mod:`repro_torch.api`; ``span`` a region of the
+#: program recorded into the process recorder (:func:`span`).
+KINDS = ("exec", "send", "recv", "phase", "span")
+
+#: The program's :func:`step_span` names.  A profiler that records the
+#: device also draws each of them on the device's rows (a user annotation
+#: over the kernels it launched), which a count of device ops leaves out.
+STEP_SPANS = ("serve.prefill", "serve.decode", "train.iteration", "plan.compile")
 
 
 def payload_nbytes(value: Any) -> int:
@@ -137,11 +163,14 @@ class TraceRecorder:
     and flushes on the same thread).
     """
 
-    __slots__ = ("enabled", "t_zero", "add", "_lock", "_rows")
+    __slots__ = ("enabled", "t_zero", "add", "anchor", "_lock", "_rows")
 
     def __init__(self, *, enabled: bool = True, t_zero: float | None = None):
         self.enabled = enabled
         self.t_zero = time.monotonic() if t_zero is None else t_zero
+        #: ``(time.monotonic(), time.time_ns())`` read together, or None:
+        #: what :func:`unix_ns` maps raw stamps through.
+        self.anchor: tuple[float, int] | None = None
         self._lock = threading.Lock()
         # Rows of (kind, location, name, start, end, src, dst, port,
         # nbytes) — exactly SpanEvent field order.
@@ -254,3 +283,98 @@ class TraceRecorder:
     def __len__(self) -> int:
         with self._lock:
             return len(self._rows)
+
+
+# ---------------------------------------------------------------------------
+# The process recorder: the program's own spans while a profiler records
+# ---------------------------------------------------------------------------
+
+#: Records raw ``time.monotonic()`` stamps (``t_zero`` 0).
+_PROCESS = TraceRecorder(t_zero=0.0)
+
+
+def _anchor() -> None:
+    """Drop the process recorder's rows and read its anchor pair anew."""
+    _PROCESS.detach()
+    _PROCESS.anchor = (time.monotonic(), time.time_ns())
+
+
+def _on_profiler_start(start=_torch_profiler._run_on_profiler_start) -> None:
+    _anchor()
+    start()
+
+
+# torch calls this as every profiler session starts (and sets
+# ``_is_profiler_enabled``): a session's rows are never left beside an
+# earlier one's that nobody took.
+_torch_profiler._run_on_profiler_start = _on_profiler_start
+
+
+def active() -> TraceRecorder | None:
+    """The process recorder while a ``torch.profiler`` records, else None."""
+    if not _torch_profiler._is_profiler_enabled:
+        return None
+    if _PROCESS.anchor is None:  # taken from mid-session, or a session older than this module
+        _anchor()
+    return _PROCESS
+
+
+def unix_ns(anchor: tuple[float, int], t_abs: float) -> int:
+    """A raw ``time.monotonic()`` stamp as Unix time in ns, through an
+    anchor pair."""
+    mono, unix = anchor
+    return unix + round((t_abs - mono) * 1e9)
+
+
+def take() -> tuple[tuple[float, int] | None, list[tuple]]:
+    """Detach the process recorder's raw rows with the anchor they were
+    stamped against.  Call it once the recording threads are quiet (after
+    the profiler stops), before the next session starts."""
+    anchor, _PROCESS.anchor = _PROCESS.anchor, None
+    return anchor, _PROCESS.detach()
+
+
+#: What a span site returns while no profiler records.
+_OFF = contextlib.nullcontext()
+
+
+class _Span:
+    __slots__ = ("name", "mark", "t0")
+
+    def __init__(self, name: str, mark):
+        self.name, self.mark = name, mark
+
+    def __enter__(self) -> None:
+        if self.mark is not None:
+            self.mark.__enter__()
+        self.t0 = time.monotonic()
+
+    def __exit__(self, et, ev, tb) -> bool:
+        t1 = time.monotonic()
+        # The thread object's cached id: ``get_native_id()`` is a system call.
+        _PROCESS.add(("span", str(threading.current_thread().native_id),
+                      self.name, self.t0, t1, None, None, None, None))
+        if self.mark is not None:
+            self.mark.__exit__(et, ev, tb)
+        return False
+
+
+def _site(name: str, step: bool):
+    if not _torch_profiler._is_profiler_enabled:
+        return _OFF
+    active()
+    return _Span(name, _torch_profiler.record_function(name) if step else None)
+
+
+def span(name: str):
+    """``with span(name):`` records one ``span`` row on this thread into
+    the process recorder while a profiler records; otherwise it reads no
+    clock, appends nothing and allocates nothing."""
+    return _site(name, False)
+
+
+def step_span(name: str):
+    """:func:`span` of a whole step, also entered as a
+    ``torch.profiler.record_function`` range of the same name, so that the
+    profiler's own trace shows it."""
+    return _site(name, True)
