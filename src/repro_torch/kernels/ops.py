@@ -6,8 +6,9 @@ whole cache, every decode step) into the kernels' ``[B, H, L, d]``, these
 wrappers pass transposed *views*: the kernels take strides, so nothing is
 copied.  Each kernel module counts its own launches in an integer that
 it adds to under a lock, as the ``inprocess`` backend fires the trainer's
-pods on threads that launch at once; :func:`launch_counts` reads the three
-and :func:`reset_launch_counts` zeroes them.
+pods on threads that launch at once; :func:`launch_counts` reads the three,
+:func:`reset_launch_counts` zeroes them, and :func:`add_launch_counts` adds
+to them for launches that no wrapper call made (a CUDA graph's replay).
 
 Gradients.  No kernel has a backward kernel, as none of the TPU kernels has
 one (the reference defines no ``custom_vjp``).  When grad mode is on and an
@@ -125,3 +126,12 @@ def reset_launch_counts() -> None:
     for mod in _MODULES.values():
         with mod._launch_lock:
             mod.launches = 0
+
+
+def add_launch_counts(counts: dict[str, int]) -> None:
+    """Add ``counts`` (by kernel, negative allowed) to the launch counts: a
+    CUDA graph's capture counts launches that run only at its replays."""
+    for name, n in counts.items():
+        mod = _MODULES[name]
+        with mod._launch_lock:
+            mod.launches += n
