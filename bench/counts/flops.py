@@ -1,16 +1,19 @@
 """Model FLOPs of a prefill, a decode step and a training iteration.
 
 Model FLOPs count the work the model defines, two a multiply-add: every
-weight product of a token (attention projections, the dense MLP or, in a
-MoE layer, the router, the ``top_k`` routed experts and the shared ones,
-whether or not capacity drops a choice), the LM head where logits are
-taken, and causal attention (a query at position ``p`` scores and sums
-``p + 1`` keys: ``4 H hd (p + 1)``).  Capacity padding, recompute and
-elementwise work are not counted.  ``m`` is a configuration's ``model``
-section.
+weight product of a token (each layer's mixer and FFN, as its kind's
+``macs`` in ``bench/layers/<kind>.py`` counts them), the LM head where
+logits are taken, and causal attention (a query at position ``p`` sees
+``p + 1`` keys, each costing its layer's mixer ``key_flops``: ``4 H hd``
+for attention).  Capacity padding, recompute and elementwise work are not
+counted.  ``m`` is a configuration's ``model`` section.
 """
 
 from __future__ import annotations
+
+from collections import Counter
+
+from .. import layers
 
 
 def layer_seq(m: dict) -> list[tuple[str, str]]:
@@ -22,17 +25,8 @@ def layer_seq(m: dict) -> list[tuple[str, str]]:
 
 def body_macs(m: dict) -> int:
     """Multiply-adds of one token's weight products below the LM head."""
-    d, hd = m["d_model"], m["head_dim"]
-    qd, kvd = m["n_heads"] * hd, m["n_kv_heads"] * hd
-    total = 0
-    for mixer, ffn in layer_seq(m):
-        total += d * qd + 2 * d * kvd + qd * d
-        if ffn in ("mlp", "dense0"):
-            total += 3 * d * m["d_ff"]
-        elif ffn == "moe":
-            moe = m["moe"]
-            total += d * moe["n_experts"] + (moe["top_k"] + moe.get("n_shared", 0)) * 3 * d * moe["d_expert"]
-    return total
+    kinds = Counter(layer_seq(m))  # each kind once: the serve driver counts every step inside its window
+    return sum(n * (layers.load(mixer).macs(m) + layers.load(ffn).macs(m)) for (mixer, ffn), n in kinds.items())
 
 
 def head_macs(m: dict) -> int:
@@ -41,7 +35,8 @@ def head_macs(m: dict) -> int:
 
 def attention_flops(m: dict, keys_seen: int) -> int:
     """Causal attention of queries that together see ``keys_seen`` keys, all layers."""
-    return 4 * m["n_heads"] * m["head_dim"] * keys_seen * len(layer_seq(m))
+    mixers = Counter(mixer for mixer, _ in layer_seq(m))
+    return keys_seen * sum(n * layers.load(mixer).key_flops(m) for mixer, n in mixers.items())
 
 
 def prefill(m: dict, batch: int, prompt_len: int) -> int:

@@ -33,9 +33,8 @@ import numpy as np
 import torch
 
 from bench.counts import flops
-from bench.harness import port, weights
+from bench.harness import core, port, weights
 from bench.harness.profile import profiled
-from bench.reference import moe_decoder as ref
 
 
 @dataclass
@@ -159,10 +158,13 @@ def release(st: State) -> None:
         torch.cuda.empty_cache()
 
 
-def reference_logits(ctx, index: int, served: torch.Tensor, mms=(ref.fp32_mm,)):
-    m = ctx.cell.model
+def reference_logits(ctx, index: int, served: torch.Tensor, mms=None):
+    """The logits of batch ``index``'s served tokens by the configuration's
+    reference (its file's ``reference`` key), by each product in ``mms``
+    (its ``fp32_mm`` alone by default)."""
+    m, ref = ctx.cell.model, core.load_reference(ctx.cell.config, ctx.root)
     return ref.serve_logits(m, lambda grp: weights.make_group(m, grp, ctx.seed, ctx.device),
-                            prompts(ctx, index), served, mms)
+                            prompts(ctx, index), served, mms or (ref.fp32_mm,))
 
 
 def numbers(gap: torch.Tensor) -> dict:
@@ -184,6 +186,7 @@ def check(st: State) -> dict:
         return {"checks": [("unfinished_batches", 1, 0)], "failed": 0, "readings": {}}
     index, served = random.Random(weights.mix(ctx.seed, 3)).choice(finished)
     served = torch.from_numpy(served).to(ctx.device)
+    ref = core.load_reference(ctx.cell.config, ctx.root)
     gap = ref.gaps(reference_logits(ctx, index, served)[0], served)
     got = numbers(gap)
     per_request = lim.get("gap_request_max", lim.get("gap_mean"))

@@ -30,10 +30,9 @@ from dataclasses import dataclass, field
 import torch
 
 from bench.counts import flops
-from bench.harness import port, weights
+from bench.harness import core, port, weights
 from bench.harness.profile import profiled
 from bench.harness.rows import Rows
-from bench.reference import moe_decoder as ref
 from bench.reference import train_step
 
 FOLLOWED = 3  # iterations the reference follows
@@ -199,13 +198,16 @@ def check(st: State) -> dict:
             "readings": {k: v for k, v in values.items() if k not in lim}}
 
 
-def reference(ctx, mm=ref.fp32_mm) -> dict:
+def reference(ctx, mm=None) -> dict:
     """The reference's readings of the first ``FOLLOWED`` iterations, from
     the seed alone: the last pod's loss at each, each leaf's norm of the
     first gradient as AdamW gets it and of the params' change, and which
     leaves move: those whose unclipped gradient's norm is at least a
-    thousandth of the median leaf's."""
+    thousandth of the median leaf's.  The forward is the configuration's
+    reference (its file's ``reference`` key); ``mm`` its ``fp32_mm`` by
+    default."""
     wl, m = ctx.cell.workload, ctx.cell.model
+    ref = core.load_reference(ctx.cell.config, ctx.root)
     named = weights.flatten(weights.make_params(m, ctx.seed, ctx.device))
     paths = [p for p, _ in named]
     start = [t.float() for _, t in named]
@@ -221,7 +223,7 @@ def reference(ctx, mm=ref.fp32_mm) -> dict:
     def forward(leaves, tokens, labels, mm_):
         return ref.forward_loss(m, weights.unflatten(paths, leaves), tokens, labels, mm_)
 
-    out = train_step.run(m, wl["optimizer"], start, stored, batches, forward, mm)
+    out = train_step.run(m, wl["optimizer"], start, stored, batches, forward, mm or ref.fp32_mm)
     raw = out["grad_raw"]
     return {
         "loss": torch.tensor([pods[-1] for pods in out["loss"]]),

@@ -9,7 +9,11 @@ cells and metrics.  Everything else is found by name under ``bench/``:
   needs besides);
 * ``workloads/<cell>.json``: the cell's ``driver``, traffic and limits;
 * ``drivers/<driver>.py``: ``setup``, ``measure``, ``profile``, ``check``;
-* ``metrics/<metric>.py``: ``read(record)`` of one per-layer metric.
+* ``metrics/<metric>.py``: ``read(record)`` of one per-layer metric;
+* ``layers/<kind>.py``: a mixer or FFN kind's weights and FLOPs
+  (:mod:`bench.layers`);
+* the configuration's ``reference`` key: its plain reference, a module under
+  ``reference/`` (:func:`load_reference`).
 
 A run: the driver's ``setup`` (everything before the first timed step),
 ``measure`` (the window), with ``--trace 1`` its ``profile`` (a short traced
@@ -114,6 +118,18 @@ def load_reader(metric: str, root: Path = ROOT):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def load_reference(conf: dict, root: Path = ROOT):
+    """The plain reference that a configuration names: its ``reference`` key,
+    a file under ``bench/reference/``.  It gives what the drivers call:
+    ``serve_logits``, ``gaps``, ``forward_loss``, ``fp32_mm``, ``fp8_mm`` and
+    ``exact_fp32``."""
+    rel = Path(conf.get("reference") or "")
+    named = rel.parent == Path("bench/reference") and rel.suffix == ".py" and rel.stem.isidentifier()
+    if not named or not (root / rel).is_file():
+        raise Refused(f"{conf.get('name')}: no reference {conf.get('reference')!r} (a file under bench/reference/)")
+    return importlib.import_module(f"bench.reference.{rel.stem}")
 
 
 def metrics_of(spec: dict, cell: str, trace: bool) -> list[dict]:

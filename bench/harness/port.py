@@ -8,9 +8,10 @@ import dataclasses
 
 def config(conf: dict):
     """The port's registry entry ``conf["arch"]`` with every field of the
-    file's ``model`` section set as written, so that the file is what runs."""
+    file's ``model`` section set as written, so that the file is what runs.
+    A section whose registry value is a dataclass (``moe``, ``ssm``) is that
+    value with the section's keys set."""
     from repro_torch.configs import get_config
-    from repro_torch.models.config import MoECfg
 
     base = get_config(conf["arch"])
     fields = {f.name for f in dataclasses.fields(base)}
@@ -18,8 +19,9 @@ def config(conf: dict):
     for k, v in conf["model"].items():
         if k not in fields:
             raise KeyError(f"{conf['name']}: the port's ModelConfig has no field {k!r}")
-        if k == "moe":
-            v = MoECfg(**v)
+        default = getattr(base, k)
+        if dataclasses.is_dataclass(default):
+            v = dataclasses.replace(default, **v)
         elif k in ("prefix_pattern", "pattern"):
             v = tuple(tuple(p) for p in v)
         kw[k] = v

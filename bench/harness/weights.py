@@ -3,18 +3,19 @@
 The benchmark makes the weights itself and hands the same tensors to the
 program; the reference makes them again from the same seed, one group at a
 time, so that it never reads what the program holds.  A group is the head
-(embedding, final norm, LM head) or one layer.  Each group is drawn from a
-generator of its own, seeded from ``(seed, group)``, in two calls: one
-``randn`` in the model's dtype for all of its model-dtype leaves, one in
-fp32 for its fp32 leaves (the MoE router), each leaf a view of that draw,
-scaled in place.
+(embedding, final norm, LM head) or one layer: ``norm1``, its mixer's
+leaves, ``norm2``, its FFN's, each kind's as ``bench/layers/<kind>.py``
+lists them.  Each group is drawn from a generator of its own, seeded from
+``(seed, group)``, in two calls: one ``randn`` in the model's dtype for all
+of its model-dtype leaves, one in fp32 for its fp32 leaves (the MoE
+router), each leaf a view of that draw, scaled in place.
 
 The layout is the port's (``repro_torch.models.model``): ``embed [Vp, d]``
 (also the LM head when tied), ``final_norm.w``, ``lm_head.w [d, Vp]``, and
-``layers[i]`` with ``norm1.w``, ``mixer.{q,k,v,o}.w``, ``norm2.w`` and
-``ffn``: ``{gate,up,down}.w`` for a dense MLP, or ``router.w [d, E]`` (fp32),
-``gate``/``up [E, d, d_e]``, ``down [E, d_e, d]`` and
-``shared.{gate,up,down}.w`` for a MoE FFN.  Linear weights are
+``layers[i]`` with ``norm1.w``, ``mixer`` (attention's ``{q,k,v,o}.w``),
+``norm2.w`` and ``ffn`` (a dense MLP's ``{gate,up,down}.w``; a MoE FFN's
+``router.w [d, E]`` (fp32), ``gate``/``up [E, d, d_e]``, ``down [E, d_e, d]``
+and ``shared.{gate,up,down}.w``).  Linear weights are
 ``N(0, 1/d_in)``; norm weights (the norm scales by ``1 + w``) are
 ``N(0, NORM_STD^2)``.  The vocabulary's rows are padded to a multiple of
 ``VOCAB_PAD``, as the port pads them.
@@ -26,6 +27,7 @@ import math
 
 import torch
 
+from bench import layers
 from bench.counts.flops import layer_seq  # noqa: F401  (the metrics read it from here)
 
 VOCAB_PAD = 256
@@ -63,44 +65,13 @@ def group_leaves(m: dict, g: int) -> list[tuple[tuple, tuple, float, bool]]:
             out.append((("lm_head", "w"), (d, vp), 1 / math.sqrt(d), False))
         return out
     mixer, ffn = layer_seq(m)[g - 1]
-    if mixer != "attn":
-        raise ValueError(f"the benchmark's weights know attention mixers only, not {mixer!r}")
-    hd = m["head_dim"]
-    qd, kvd = m["n_heads"] * hd, m["n_kv_heads"] * hd
-    out = [
-        (("norm1", "w"), (d,), NORM_STD, False),
-        (("mixer", "q", "w"), (d, qd), 1 / math.sqrt(d), False),
-        (("mixer", "k", "w"), (d, kvd), 1 / math.sqrt(d), False),
-        (("mixer", "v", "w"), (d, kvd), 1 / math.sqrt(d), False),
-        (("mixer", "o", "w"), (qd, d), 1 / math.sqrt(qd), False),
-        (("norm2", "w"), (d,), NORM_STD, False),
-    ]
-    if ffn in ("mlp", "dense0"):
-        f = m["d_ff"]
-        out += [
-            (("ffn", "gate", "w"), (d, f), 1 / math.sqrt(d), False),
-            (("ffn", "up", "w"), (d, f), 1 / math.sqrt(d), False),
-            (("ffn", "down", "w"), (f, d), 1 / math.sqrt(f), False),
-        ]
-    elif ffn == "moe":
-        moe = m["moe"]
-        e, de = moe["n_experts"], moe["d_expert"]
-        out += [
-            (("ffn", "router", "w"), (d, e), 1 / math.sqrt(d), True),
-            (("ffn", "gate"), (e, d, de), 1 / math.sqrt(d), False),
-            (("ffn", "up"), (e, d, de), 1 / math.sqrt(d), False),
-            (("ffn", "down"), (e, de, d), 1 / math.sqrt(de), False),
-        ]
-        if moe.get("n_shared", 0):
-            ds = moe["n_shared"] * de
-            out += [
-                (("ffn", "shared", "gate", "w"), (d, ds), 1 / math.sqrt(d), False),
-                (("ffn", "shared", "up", "w"), (d, ds), 1 / math.sqrt(d), False),
-                (("ffn", "shared", "down", "w"), (ds, d), 1 / math.sqrt(ds), False),
-            ]
-    else:
-        raise ValueError(f"the benchmark's weights know no ffn {ffn!r}")
-    return out
+    return [(("norm1", "w"), (d,), NORM_STD, False), *_below(m, "mixer", mixer),
+            (("norm2", "w"), (d,), NORM_STD, False), *_below(m, "ffn", ffn)]
+
+
+def _below(m: dict, part: str, kind: str) -> list[tuple[tuple, tuple, float, bool]]:
+    """The leaves of layer kind ``kind`` under ``part`` (``mixer`` or ``ffn``)."""
+    return [((part, *path), shape, std, fp32) for path, shape, std, fp32 in layers.load(kind).leaves(m)]
 
 
 def _put(tree: dict, path: tuple, leaf) -> None:

@@ -1,4 +1,5 @@
-"""Plain fp32 reference of the decoder that both configurations run.
+"""Plain fp32 reference of the attention and MoE decoder that both
+configurations run (their files' ``reference`` key names this module).
 
 It is written from the models' published description and the port's stated
 semantics, not from the port's code, and imports nothing of the program:
@@ -17,6 +18,9 @@ semantics, not from the port's code, and imports nothing of the program:
   prefill's whole batch, one decode step's batch, one pod's training batch;
 * a final RMSNorm and the LM head (the embedding, transposed, when tied),
   over the true vocabulary;
+* a layer of another kind is refused (:func:`block`); a reference for it is
+  a module of its own beside this one, which may import :func:`rms`,
+  :func:`rope`, :func:`moe_ffn` and :func:`logits` from here;
 * training (:mod:`bench.reference.train_step`): next-token cross-entropy plus
   ``router_aux_weight`` times the summed Switch loss
   ``E sum_e (density_e / k) mean_prob_e``.
@@ -194,7 +198,12 @@ def moe_ffn(m: dict, p: dict, x: torch.Tensor, groups: list[torch.Tensor], mm):
 
 
 def block(m: dict, kind, p: dict, x: torch.Tensor, groups: list[torch.Tensor], mm):
-    """One layer over whole sequences ``x`` [B, S, d]; ``(x, aux or None)``."""
+    """One layer over whole sequences ``x`` [B, S, d]; ``(x, aux or None)``.
+    ``kind`` is the layer's ``(mixer, ffn)``; this reference computes an
+    ``attn`` mixer and an ``mlp``, ``dense0`` or ``moe`` FFN, and refuses
+    any other kind rather than compute it as one of these."""
+    if kind[0] != "attn" or kind[1] not in ("mlp", "dense0", "moe"):
+        raise ValueError(f"bench/reference/moe_decoder.py does not compute a {kind} layer")
     x = x + attention(m, p["mixer"], rms(m, x, p["norm1"]["w"]), mm)
     h = rms(m, x, p["norm2"]["w"])
     if kind[1] == "moe":

@@ -3,7 +3,7 @@ sync with error feedback, and AdamW with a warmup-cosine schedule.
 
 Each iteration, as the training workflow states it: every pod takes its
 rows ``i::n_pods`` of the global batch and computes its loss and gradient
-(:func:`moe_decoder.forward_loss`); each pod's gradient plus its carried
+(the ``forward_loss`` of the configuration's reference); each pod's gradient plus its carried
 error is quantised to int8 with one fp32 scale a row of the last axis
 (``scale = max(absmax / 127, 1e-12)``, ``q = clip(round(g / scale), +-127)``,
 rounding half to even) and the residual carried to its next iteration; the

@@ -50,11 +50,18 @@ def pytest_configure(config):
 
 @pytest.fixture
 def card():
-    """Skip unless this machine has a CUDA device (decided here, at run time)."""
+    """Skip unless this machine has a CUDA device (decided here, at run time).
+    Afterwards hand the card's cached memory back, so that a later test's
+    run in a process of its own finds the card free."""
+    import gc
+
     import torch
 
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; run on the card with -m card")
+    yield
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def write_cell(root: Path, name: str, config: dict, workload: dict, entry: dict) -> None:
@@ -85,7 +92,8 @@ def make_tiny_root(tmp_path: Path) -> Path:
     every metric its real sibling has."""
     (tmp_path / "bench").mkdir()
     os.symlink(REPO / "src", tmp_path / "src")
-    os.symlink(REPO / "bench" / "metrics", tmp_path / "bench" / "metrics")
+    for part in ("metrics", "reference"):
+        os.symlink(REPO / "bench" / part, tmp_path / "bench" / part)
     spec = json.loads((REPO / "BENCHMARK.json").read_text())
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(spec))
     for cell, (cname, sibling, over) in TINY_CELLS.items():

@@ -30,10 +30,9 @@ def serve_seed(ctx, control: bool, faults: bool) -> dict:
     import torch
 
     from bench.drivers import serve
-    from bench.reference import moe_decoder as ref
     from bench.tests import faults as planted
 
-    wl = ctx.cell.workload
+    wl, ref = ctx.cell.workload, core.load_reference(ctx.cell.config, ctx.root)
     out = {}
     runs = [("program", None)] + ([(k, f) for k, f in planted.SERVE.items()] if faults else [])
     served = {}
@@ -57,7 +56,6 @@ def serve_seed(ctx, control: bool, faults: bool) -> dict:
 
 def train_seed(ctx, control: bool, faults: bool) -> dict:
     from bench.drivers import train
-    from bench.reference import moe_decoder as ref
     from bench.tests import faults as planted
 
     got = {}
@@ -70,6 +68,7 @@ def train_seed(ctx, control: bool, faults: bool) -> dict:
     want = train.reference(ctx)
     out = {name: train.gaps(r, want) for name, r in got.items()}
     if control:
+        ref = core.load_reference(ctx.cell.config, ctx.root)
         out["control"] = train.gaps(train.reference(ctx, ref.fp8_mm), want)
     return out
 

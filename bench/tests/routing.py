@@ -32,15 +32,16 @@ from bench.harness import core  # noqa: E402
 
 
 @contextmanager
-def recording():
+def recording(ctx):
     """Record the top-k experts of every routing call of the port and of the
-    reference: ``(port, ref)``, each a list of ``[T, k]`` int64 tensors (the
-    reference's with its sorted probabilities' margin at k, ``[T]``)."""
+    cell's reference: ``(port, ref)``, each a list of ``[T, k]`` int64
+    tensors (the reference's with its sorted probabilities' margin at k,
+    ``[T]``)."""
     import torch
 
-    from bench.reference import moe_decoder as ref
     from repro_torch.models import moe
 
+    ref = core.load_reference(ctx.cell.config, ctx.root)
     port_calls, ref_calls = [], []
     port_route, ref_route = moe.route, ref.route
 
@@ -75,11 +76,10 @@ def serve_look(ctx) -> dict:
     import torch
 
     from bench.drivers import serve
-    from bench.reference import moe_decoder as ref
 
-    wl = ctx.cell.workload
+    wl, ref = ctx.cell.workload, core.load_reference(ctx.cell.config, ctx.root)
     b, l0, g = wl["batch"], wl["prompt_len"], wl["gen"]
-    with recording() as (port_calls, ref_calls):
+    with recording(ctx) as (port_calls, ref_calls):
         st = serve.setup(ctx)
         port_calls.clear()  # the warm-up batch
         served = np.stack(list(serve._batch(st, serve.prompts(ctx, 0), g - 1)), axis=1)
@@ -149,7 +149,7 @@ def train_look(ctx) -> dict:
     from bench.harness import weights
 
     wl = ctx.cell.workload
-    with recording() as (port_calls, ref_calls):
+    with recording(ctx) as (port_calls, ref_calls):
         st = train.setup(ctx)
         got = train.readings(st)
         train.release(st)

@@ -1,11 +1,14 @@
 """``BENCHMARK.json`` against the contract's static rules, and every cell,
-driver, reader and file it names found under ``bench/``."""
+driver, reader, reference, layer kind and file it names found under
+``bench/``."""
 
 import json
 import re
 from pathlib import Path
 
 import pytest
+
+from bench.counts.flops import layer_seq
 
 REPO = Path(__file__).resolve().parents[2]
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -41,6 +44,10 @@ def test_configs(spec):
         assert c["file"].startswith("bench/") and (REPO / c["file"]).is_file()
         conf = json.loads((REPO / c["file"]).read_text())
         assert conf["name"] == c["name"] and conf["source"] == c["source"] and conf["reduced"] == c["reduced"]
+        ref = Path(conf["reference"])
+        assert ref.parent == Path("bench/reference") and (REPO / ref).is_file(), conf["reference"]
+        for kind in {k for layer in layer_seq(conf["model"]) for k in layer}:
+            assert (REPO / "bench" / "layers" / f"{kind}.py").is_file(), (c["name"], kind)
         assert any(w["config"] == c["name"] for w in spec["workloads"])
     assert len({c["file"] for c in spec["configs"]}) == len(spec["configs"])
 

@@ -1,5 +1,5 @@
 """What the benchmark may load: never JAX or the JAX package, and its
-reference nothing of the program.  Names are compared as whole top-level
+reference, counts and layer kinds nothing of the program.  Names are compared as whole top-level
 module names (``repro_torch`` is not ``repro``)."""
 
 import ast
@@ -40,7 +40,7 @@ def test_no_module_imports_jax_or_the_jax_package():
 
 
 def test_the_reference_imports_nothing_of_the_program():
-    for path in sorted((BENCH / "reference").rglob("*.py")) + sorted((BENCH / "counts").rglob("*.py")):
+    for path in [p for part in ("reference", "counts", "layers") for p in sorted((BENCH / part).rglob("*.py"))]:
         bad = {n for n in imported(path) if n.startswith("repro")} | (imported(path) & {"bench"})
         assert not bad, f"{path.relative_to(BENCH)} imports {sorted(bad)}"
 

@@ -91,3 +91,13 @@ def test_the_control_reads_further_from_the_reference_than_the_program():
                                      (ref.fp32_mm, ref.fp8_mm))
     assert float(ref.gaps(want, control.argmax(dim=-1)).max()) > 1e-2
     assert float(ref.gaps(want, want.argmax(dim=-1)).max()) == 0.0
+
+
+@pytest.mark.parametrize("kind", [("mamba", "moe"), ("attn", "none")])
+def test_a_layer_of_another_kind_is_refused_not_computed_as_attention(kind):
+    conf = fp32_config("tiny-ds")
+    m = {**conf["model"], **conf["numerics"]}
+    p = weights.make_group(m, 2, 1, "cpu")
+    x = torch.zeros(1, 4, m["d_model"])
+    with pytest.raises(ValueError, match="does not compute"):
+        ref.block(m, kind, ref.f32(p), x, [torch.arange(4)], ref.fp32_mm)
