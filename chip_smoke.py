@@ -8,7 +8,7 @@ Run from the root of a checkout, with no arguments::
 Phases, each of which exits nonzero on failure:
 
 1. Environment: torch and CUDA versions, the card, its power limit.
-2. Build the three CUDA kernels from ``src/repro_torch/csrc`` (in parallel);
+2. Build the four CUDA kernels from ``src/repro_torch/csrc`` (in parallel);
    print each rmsnorm instance's registers and fail if any spills.
 3. Hold each kernel against its plain PyTorch version at the serving shapes
    and beyond (rmsnorm at the zoo's widths and ragged ones, 1 to 8192 rows,
@@ -282,6 +282,18 @@ Phases, each of which exits nonzero on failure:
    answers the same number.  Prints requests/s and p50 / p99 ms.  The
    child's failure fails the run.
 
+19. DeepSeek-V2-Lite's multi-head latent attention, in an eighth child
+   process (``chip_smoke.py --mla OUT``): the absorbed MLA decode kernel
+   against its plain version at the long-prompt cell's shape (batch 4, 16
+   heads, a 32150-row latent cache, kv_len 1, a split, 32100 and the whole
+   cache, read from the device), by relative L2 against fp32; its time, its
+   plain version's and one SDPA call's at kv 32100 (cold L2, median of 25)
+   beside the bound from ``bench/counts/mla.py``; then the model served at
+   full width and depth (27 layers) through ``serve`` with every launch
+   count zeroed just before: one flash launch an MLA layer in the prefill,
+   one MLA decode launch a layer and step, none of decode attention.  Its
+   row joins the kernels' record.  The child's failure fails the run.
+
 ``python3 chip_smoke.py --rmsnorm-times ROOT`` only times the rmsnorm
 wrapper of the checkout at ROOT (see :func:`rmsnorm_times`), and
 ``--dataplane-times ROOT`` only its untraced data plane (see
@@ -291,7 +303,7 @@ checkouts at A and B in alternating pairs (see :func:`dataplane_compare`).
 The line before the last is the kernels' JSON record (each kernel's
 launches on each path under ``launches_by_path``), the data plane's,
 the traced phase's, training's, the MoE phase's, the recurrent phase's,
-the families', phase 13's to phase 18's numbers above the card's name; the last line is
+the families', phase 13's to phase 19's numbers above the card's name; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 rest of the repository beside it, it exits nonzero and prints no result.
 """
@@ -563,6 +575,12 @@ MP_ACK_TIMEOUT_S = 30.0
 # the card from its seed; a run held for the over-quota check waits at most
 # GW_GATE_S.
 GW_REQUESTS, GW_CLIENTS, GW_SHAPE, GW_GATE_S = 200, 8, (512, 3072), 30.0
+# Phase 19: the MLA arch, and its decode kernel at the long-prompt cell's
+# batch, cache rows and last length (prompt 32000, 150 generated).  The
+# tolerance is bench/tests/test_bench_mla_card.py's: twice the bf16 output's
+# own rounding; a kernel that drops a row or half of P reads ~1e-2.
+MLA_ARCH = "deepseek-v2-lite"
+MLA_BATCH, MLA_CACHE, MLA_KV, MLA_REL_L2_TOL = 4, 32150, 32100, 4e-3
 
 # The leaves that a bf16 model keeps in fp32 (the mLSTM's input and forget
 # gates, the sLSTM's gate biases): AdamW must leave them fp32.
@@ -2121,7 +2139,7 @@ def phase_train(torch, smi: str, sku: str) -> dict:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n = TRAIN_LAYERS
     want = {"rmsnorm": TRAIN_PODS * ((2 * n + 1) + 2 * n),
-            "flash_attention": TRAIN_PODS * 2 * n, "decode_attention": 0}
+            "flash_attention": TRAIN_PODS * 2 * n, "decode_attention": 0, "mla_decode": 0}
     print(f"[9] launches in one iteration {counts} (expected {want})")
     if counts != want:
         fail("the training path did not launch each kernel as expected")
@@ -2331,7 +2349,9 @@ def serve_launches(cfg) -> tuple[dict, dict]:
     cross-attentions included; at a step, flash at each cross-attention and
     at each attention layer with a window (``attn_local``) or a logit
     softcap, which the decode kernel does not take, and decode attention at
-    the others.  A recurrent mixer launches none."""
+    the others.  An MLA mixer (``mla``) is flash at a prefill and the MLA
+    decode kernel at a step, and one rmsnorm more (its latent's).  A
+    recurrent mixer launches none."""
     kinds = cfg.layer_seq()
     cross = cfg.is_encoder_decoder
     per_ffn = 1 + cfg.post_block_norm
@@ -2343,8 +2363,13 @@ def serve_launches(cfg) -> tuple[dict, dict]:
     to_flash = sum(cfg.attn_logit_softcap > 0 or (m == "attn_local" and cfg.sliding_window > 0) for m in attn)
     n_cross = len(kinds) if cross else 0
     n_enc = cfg.n_enc_layers if cross else 0
-    return ({"rmsnorm": norms + enc_norms, "flash_attention": len(attn) + n_cross + n_enc, "decode_attention": 0},
-            {"rmsnorm": norms, "flash_attention": to_flash + n_cross, "decode_attention": len(attn) - to_flash})
+    n_mla = sum(m == "mla" for m, _ in kinds)
+    if cfg.norm == "rmsnorm":
+        norms += n_mla
+    return ({"rmsnorm": norms + enc_norms, "flash_attention": len(attn) + n_cross + n_enc + n_mla,
+             "decode_attention": 0, "mla_decode": 0},
+            {"rmsnorm": norms, "flash_attention": to_flash + n_cross, "decode_attention": len(attn) - to_flash,
+             "mla_decode": n_mla})
 
 
 def train_launches(cfg, pods: int) -> dict:
@@ -2355,7 +2380,7 @@ def train_launches(cfg, pods: int) -> dict:
     fwd, _ = serve_launches(cfg)
     final = int(fwd["rmsnorm"] > 0)
     return {"rmsnorm": pods * (2 * fwd["rmsnorm"] - final), "flash_attention": pods * 2 * fwd["flash_attention"],
-            "decode_attention": 0}
+            "decode_attention": 0, "mla_decode": 0}
 
 
 def serve_counted(torch, tag: str, cfg, smi: str, n_layers=None) -> tuple[dict, dict, float]:
@@ -2597,7 +2622,7 @@ def moe_train(torch, smi: str, sku: str) -> dict:
     first_ms = (time.perf_counter() - t0) * 1e3
     counts = kops.launch_counts()
     want = {"rmsnorm": TRAIN_PODS * ((2 * n + 1) + 2 * n), "flash_attention": TRAIN_PODS * 2 * n,
-            "decode_attention": 0}
+            "decode_attention": 0, "mla_decode": 0}
     print(f"[10] {MOE_TRAIN_ARCH} launches in one iteration {counts} (expected {want}); loss "
           f"{m['loss']:.6f}, ce {m['ce']:.6f}, aux {m['aux']:.6f}, grad norm {m['grad_norm']:.4f}")
     if counts != want:
@@ -3451,7 +3476,7 @@ def r_decode(torch, smi: str, sku: str) -> dict:
         torch.cuda.synchronize()
         launches = kops.launch_counts()
     n = len(cfg.layer_seq())
-    want = {"rmsnorm": 2 * n + 1, "flash_attention": 0, "decode_attention": n}
+    want = {"rmsnorm": 2 * n + 1, "flash_attention": 0, "decode_attention": n, "mla_decode": 0}
     print(f"[15] R-decode launches {launches} (expected {want})")
     if launches != want:
         fail("R-decode did not launch each kernel as expected")
@@ -3744,7 +3769,7 @@ def phase_threaded(torch, smi: str, sku: str, device: str = "cuda") -> dict:
     torch.cuda.synchronize()
     t_many = time.perf_counter() - t0
     counts = kops.launch_counts()
-    want = {"rmsnorm": 2 * SERVE_INSTANCES, "flash_attention": 0, "decode_attention": 0}
+    want = {"rmsnorm": 2 * SERVE_INSTANCES, "flash_attention": 0, "decode_attention": 0, "mla_decode": 0}
     if counts != want:
         fail(f"S-serve run_many launched {counts}, not {want}")
     if len(many) != len(per):
@@ -4276,7 +4301,7 @@ def phase_gateway(torch, smi: str, sku: str, device: str = "cuda", start_method:
         counts = kops.launch_counts()
         if errors or len(answers) != GW_REQUESTS:
             fail(f"gateway: {len(answers)} of {GW_REQUESTS} requests answered; errors {errors[:3]}")
-        want = {"rmsnorm": norms * GW_REQUESTS, "flash_attention": 0, "decode_attention": 0}
+        want = {"rmsnorm": norms * GW_REQUESTS, "flash_attention": 0, "decode_attention": 0, "mla_decode": 0}
         if counts != want:
             fail(f"gateway: {GW_REQUESTS} requests launched {counts}, not {want}")
         for i in range(GW_REQUESTS):
@@ -4458,6 +4483,70 @@ def dataplane_compare(a: Path, b: Path, pairs: int) -> int:
     return 0
 
 
+# -- phase 19: DeepSeek-V2-Lite's multi-head latent attention --------------------------
+
+
+def phase_mla(torch, smi: str, sku: str) -> dict:
+    """Phase 19: the absorbed MLA decode kernel against its plain version and
+    timed at the long-prompt cell's shape, then MLA_ARCH served at full width
+    and depth with exact launch counts.  Returns the kernel's row and the
+    serve's launches."""
+    import torch.nn.functional as F
+
+    from bench.counts import mla as mla_counts
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import mla_decode as kmla
+    from repro_torch.kernels import ref
+    from repro_torch.models import mla
+
+    cfg = get_config(MLA_ARCH)
+    lat, rope, h = cfg.mla.kv_lora_rank, cfg.mla.qk_rope_head_dim, cfg.n_heads
+    b, rows, kv = MLA_BATCH, MLA_CACHE, MLA_KV
+    scale = mla.softmax_scale(cfg)
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    q = torch.randn(b, h, lat + rope, generator=g, device="cuda").bfloat16()
+    buf = torch.randn(b, rows, lat + rope, generator=g, device="cuda").bfloat16()
+    q_lat, q_pe, c_kv, k_pe = q[..., :lat], q[..., lat:], buf[..., :lat], buf[..., lat:]
+    chunk = kmla.split_chunk(rows, b, torch.cuda.get_device_properties(0).multi_processor_count)
+    rels = {}
+    for n in (1, chunk, chunk + 1, kv, rows):
+        got = kmla.mla_decode(q_lat, q_pe, c_kv, k_pe, torch.tensor(n, dtype=torch.int32, device="cuda"), scale)
+        want = ref.mla_decode_ref(q_lat.float(), q_pe.float(), c_kv.float(), k_pe.float(), n, scale)
+        rels[n] = rel_l2(got, want)
+    print(f"[19] mla_decode B{b} H{h} cache {rows} x {lat}+{rope} bf16 against fp32, rel L2 by kv_len: "
+          f"{', '.join(f'{n} {r:.3e}' for n, r in rels.items())} (tol {MLA_REL_L2_TOL:g})")
+    if not all(r <= MLA_REL_L2_TOL for r in rels.values()):  # so that a NaN fails too
+        fail(f"mla_decode disagrees with its plain version: {rels}")
+
+    bench = Bench(torch, sku)
+    kv_len = torch.tensor(kv, dtype=torch.int32, device="cuda")
+    # The library's yardstick: one SDPA call, the 576-wide cache rows as one
+    # key head for all 16 query heads and their first 512 as the value.
+    qs, ks, vs = q[:, :, None], buf[:, None, :kv], c_kv[:, None, :kv]
+    t = bench.ms(lambda: kmla.mla_decode(q_lat, q_pe, c_kv, k_pe, kv_len, scale))
+    tp = bench.ms(lambda: ref.mla_decode_ref(q_lat, q_pe, c_kv, k_pe, kv_len, scale))
+    tl = bench.ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, scale=scale, enable_gqa=True))
+    bound, by = bench.bound(mla_counts.mla_decode_bytes(b, h, kv, lat, rope),
+                            mla_counts.mla_decode_flops(b, h, kv, lat, rope), "bf16")
+    shape = f"B{b} H{h} cache {rows} kv={kv} latent {lat}+{rope}"
+    print(f"[19] mla_decode {shape}: kernel {us(t)}, plain {us(tp)}, library {us(tl)}, kernel/library "
+          f"{t / tl:.3g}x; bound {us(bound)} ({by}), {bound / t:.3g} of bound  ({smi})")
+    row = {"shape": shape, "ms": t, "plain_ms": tp, "library_ms": tl, "bound_ms": bound, "bound_by": by,
+           "max_rel_l2": max(rels.values()), "rel_l2_by_kv_len": {str(n): r for n, r in rels.items()}}
+    del bench, q, buf, q_lat, q_pe, c_kv, k_pe, qs, ks, vs, kv_len
+    torch.cuda.empty_cache()
+
+    n = len(cfg.layer_seq())
+    per_prefill, per_step = serve_launches(cfg)
+    if (per_prefill["mla_decode"], per_step["mla_decode"], per_step["decode_attention"]) != (0, n, 0):
+        fail(f"{MLA_ARCH}: serve_launches counts {per_prefill}, {per_step} for {n} MLA layers")
+    print(f"[19] serve {MLA_ARCH} full width: {n} layers of MLA (latent {lat}, rope {rope}, {h} heads), "
+          f"d {cfg.d_model}, vocab {cfg.vocab}, {cfg.dtype}")
+    res, counts, peak_gb = serve_counted(torch, "19", cfg, smi)
+    return {"row": row, "launches": counts, "prefill_ms": res["prefill_s"] * 1e3,
+            "decode_ms": res["decode_s"] * 1e3, "tok_per_s": res["tok_per_s"], "peak_gb": peak_gb, "device": smi}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rmsnorm-times", metavar="ROOT", type=Path,
@@ -4481,6 +4570,8 @@ def main() -> int:
                     help="only phase 17, the multiprocess backend, its result to OUT (a child process)")
     ap.add_argument("--gateway", metavar="OUT", type=Path,
                     help="only phase 18, the gateway over HTTP, its result to OUT (a child process)")
+    ap.add_argument("--mla", metavar="OUT", type=Path,
+                    help="only phase 19, DeepSeek-V2-Lite's latent attention, its result to OUT (a child process)")
     opts = ap.parse_args()
     # One process makes and frees models of up to 34 GB and trains two more:
     # with fixed segments the freed memory splinters, and phase 11's jamba
@@ -4527,6 +4618,8 @@ def main() -> int:
         return child(torch, opts.multiprocess, phase_multiprocess)
     if opts.gateway is not None:
         return child(torch, opts.gateway, phase_gateway)
+    if opts.mla is not None:
+        return child(torch, opts.mla, phase_mla)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -4590,6 +4683,9 @@ def main() -> int:
     # -- 18. the gateway: workflow requests answered over HTTP, steps on the card ----------
     gateway = run_child("18", "--gateway", "the gateway")
 
+    # -- 19. DeepSeek-V2-Lite: the MLA decode kernel, and the model served ------------------
+    mla = run_child("19", "--mla", "latent attention")
+
     # -- 3. kernels vs plain -----------------------------------------------------
     bench = Bench(torch, sku)
     rows = phase_kernels(torch, bench)
@@ -4613,6 +4709,7 @@ def main() -> int:
         "rmsnorm": (2 * n_layers + 1) * (1 + steps),
         "flash_attention": n_layers,
         "decode_attention": n_layers * steps,
+        "mla_decode": 0,
     }
     print(f"[4] launches {counts} (expected {want})")
     if counts != want:
@@ -4724,8 +4821,18 @@ def main() -> int:
                 **{f"threaded {path}": c[k] for path, c in threaded["launches"].items()},
                 **{f"multiprocess {path}": c[k] for path, c in multiprocess["launches"].items()},
                 "gateway": gateway["launches"][k],
+                f"serve {MLA_ARCH}": mla["launches"][k],
             },
         })
+    r = mla["row"]
+    record.append({
+        "name": "mla_decode", "route": "cuda", "source": src.format("mla_decode"), "replaces": None,
+        "launches": mla["launches"]["mla_decode"], "max_rel_l2": r["max_rel_l2"], "ms": r["ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+        "library_ms": r["library_ms"], "shape": r["shape"], "rows": [r],
+        # Every other path's expected counts hold it at 0.
+        "launches_by_path": {f"serve {MLA_ARCH}": mla["launches"]["mla_decode"]},
+    })
     print(json.dumps({"dataplane": dataplane}))
     print(json.dumps({"traced": traced}))
     print(json.dumps({"train": train}))
@@ -4738,6 +4845,7 @@ def main() -> int:
     print(json.dumps({"threaded": threaded}))
     print(json.dumps({"multiprocess": multiprocess}))
     print(json.dumps({"gateway": gateway}))
+    print(json.dumps({"mla": mla}))
     print(f"kernels: {', '.join(r['name'] for r in record)}; {time.monotonic() - t_start:.1f} s in all")
     print(smi)
     print(json.dumps({"kernels": record}))

@@ -1,6 +1,8 @@
 """Architecture registry: ``--arch <id>`` → ModelConfig (+ smoke variants).
 
-The reference's ten archs, each config a copy of the reference's.
+``ARCHS`` holds the reference's ten archs, each config a copy of the
+reference's; ``PORT_ARCHS`` the archs that only the port has (its MLA model).
+:func:`get_config` finds both, and ``KNOWN`` holds them together.
 """
 
 from __future__ import annotations
@@ -9,6 +11,7 @@ from repro_torch.models.config import ModelConfig, smoke_variant
 
 from . import (
     deepseek_moe_16b,
+    deepseek_v2_lite,
     gemma2_27b,
     granite_moe_1b_a400m,
     internvl2_1b,
@@ -37,11 +40,16 @@ ARCHS: dict[str, ModelConfig] = {
 }
 
 
+PORT_ARCHS: dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG for m in (deepseek_v2_lite,)}
+
+KNOWN: dict[str, ModelConfig] = {**ARCHS, **PORT_ARCHS}
+
+
 def get_config(arch: str, *, smoke: bool = False) -> ModelConfig:
-    if arch not in ARCHS:
-        raise KeyError(f"unknown arch {arch!r}; known: {sorted(ARCHS)}")
-    cfg = ARCHS[arch]
+    if arch not in KNOWN:
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(KNOWN)}")
+    cfg = KNOWN[arch]
     return smoke_variant(cfg) if smoke else cfg
 
 
-__all__ = ["ARCHS", "get_config"]
+__all__ = ["ARCHS", "KNOWN", "PORT_ARCHS", "get_config"]

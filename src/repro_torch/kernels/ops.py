@@ -1,4 +1,4 @@
-"""Model-layout wrappers around the three kernels, and their launch counts.
+"""Model-layout wrappers around the four kernels, and their launch counts.
 
 The model keeps activations as ``[B, L, H, d]`` and its cache as
 ``[B, M, Hkv, d]``.  Where ``repro.kernels.ops`` transposes q/k/v (and the
@@ -6,7 +6,7 @@ whole cache, every decode step) into the kernels' ``[B, H, L, d]``, these
 wrappers pass transposed *views*: the kernels take strides, so nothing is
 copied.  Each kernel module counts its own launches in an integer that
 it adds to under a lock, as the ``inprocess`` backend fires the trainer's
-pods on threads that launch at once; :func:`launch_counts` reads the three,
+pods on threads that launch at once; :func:`launch_counts` reads the four,
 :func:`reset_launch_counts` zeroes them, and :func:`add_launch_counts` adds
 to them for launches that no wrapper call made (a CUDA graph's replay).
 
@@ -16,7 +16,8 @@ input requires grad, :func:`rmsnorm` and :func:`flash_attention` launch
 their kernel under :class:`KernelWithPlainGrad`, whose backward recomputes
 the plain version of ``ref.py`` on the saved inputs and differentiates it;
 otherwise (serving runs under ``torch.inference_mode``) they call the kernel
-directly.  Decode attention is for serving only and raises under grad.
+directly.  Decode attention and the absorbed MLA decode are for serving
+only and raise under grad.
 
 The kernels take raw pointers, so a DTensor must never reach them: each
 wrapper raises on one.  The model calls them on a DTensor's local shards
@@ -30,10 +31,11 @@ import torch
 from . import _build
 from . import decode_attention as _decode
 from . import flash_attention as _flash
+from . import mla_decode as _mla
 from . import ref
 from . import rmsnorm as _rmsnorm
 
-_MODULES = {"rmsnorm": _rmsnorm, "flash_attention": _flash, "decode_attention": _decode}
+_MODULES = {"rmsnorm": _rmsnorm, "flash_attention": _flash, "decode_attention": _decode, "mla_decode": _mla}
 
 
 class KernelWithPlainGrad(torch.autograd.Function):
@@ -104,6 +106,15 @@ def decode_attention(q, k, v, kv_len):
         )
     out = _decode.decode_attention(q[:, 0], k.transpose(1, 2), v.transpose(1, 2), kv_len)
     return out[:, None]
+
+
+def mla_decode(q_lat, q_pe, c_kv, k_pe, kv_len, scale: float):
+    """q_lat: [B, H, 512], q_pe: [B, H, 64]; latent cache c_kv: [B, M, 512],
+    k_pe: [B, M, 64] → o_lat [B, H, 512] (see :mod:`.mla_decode`)."""
+    _local_only(q_lat, q_pe, c_kv, k_pe, kv_len)
+    if _grad_needed(q_lat, q_pe, c_kv, k_pe):
+        raise RuntimeError("the absorbed MLA decode has no gradient; run decode under torch.inference_mode()")
+    return _mla.mla_decode(q_lat, q_pe, c_kv, k_pe, kv_len, scale)
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:

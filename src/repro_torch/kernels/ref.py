@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the three kernels.
+"""Plain PyTorch versions of the kernels.
 
 They mirror ``repro.kernels.ref`` (the ground truth of the Pallas kernels),
 with one extension: ``flash_attention_ref`` takes ``q_offset``, the absolute
@@ -7,7 +7,8 @@ held against it.  The CPU tests use them, each kernel wrapper takes them for a
 tensor on the CPU, and ``chip_smoke.py`` holds the kernels against them on the
 card.  ``decode_attention_split_ref`` spells out the decode kernel's split
 over the cache and its merge, for the tests.  ``kv_len`` and ``q_offset`` may
-be ints or device int32 scalars.
+be ints or device int32 scalars.  ``mla_decode_ref`` is the absorbed MLA
+decode kernel's, which has no TPU original (the JAX package has no MLA).
 """
 
 from __future__ import annotations
@@ -108,6 +109,23 @@ def decode_attention_split_ref(
     w = torch.where(full, torch.exp(m - mx), 0.0)
     denom = (l * w).sum(-1).clamp_min(1e-30)
     return ((acc * w[..., None]).sum(-2) / denom[..., None]).to(q.dtype)
+
+
+def mla_decode_ref(
+    q_lat: torch.Tensor,  # [B, H, c]: each head's latent query
+    q_pe: torch.Tensor,  # [B, H, r]: its RoPE query
+    c_kv: torch.Tensor,  # [B, M, c]: the latent cache, also the values
+    k_pe: torch.Tensor,  # [B, M, r]: the RoPE keys, shared by the heads
+    kv_len,
+    scale: float,
+) -> torch.Tensor:
+    """``softmax(scale · (q_lat · c_kv + q_pe · k_pe)) · c_kv`` over the first
+    ``kv_len`` rows, in fp32: ``[B, H, c]`` in ``q_lat``'s dtype."""
+    s = torch.einsum("bhc,bmc->bhm", q_lat.float(), c_kv.float())
+    s = (s + torch.einsum("bhr,bmr->bhm", q_pe.float(), k_pe.float())) * scale
+    mask = torch.arange(c_kv.shape[1], device=q_lat.device)[None, None, :] < kv_len
+    p = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
+    return torch.einsum("bhm,bmc->bhc", p, c_kv.float()).to(q_lat.dtype)
 
 
 def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:

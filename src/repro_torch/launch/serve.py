@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch._bridge import resolve_device
-from repro_torch.configs import ARCHS, get_config
+from repro_torch.configs import KNOWN, get_config
 from repro_torch.kernels import ops as kops
 from repro_torch.models import Model
 
@@ -148,7 +148,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(
         description=(
             "Serve a model with the PyTorch/CUDA port: prefill + greedy decode. "
-            f"Archs: {', '.join(sorted(ARCHS))}."
+            f"Archs: {', '.join(sorted(KNOWN))}."
         )
     )
     ap.add_argument("--arch", default="xlstm-125m")

@@ -93,7 +93,7 @@ def make_serve_step(model: Model) -> ServeStep:
 
 
 #: The cache entries a decode step reads without replacing them: ``len``
-#: (a device scalar), ``layers`` of attention K/V written in place, and an
+#: (a device scalar), ``layers`` of entries written in place, and an
 #: encoder-decoder model's ``enc_out``.
 _FIXED_CACHE = frozenset(("len", "layers", "enc_out"))
 
@@ -114,9 +114,9 @@ def why_eager(params: Params, cache: Params, token: torch.Tensor) -> str | None:
     if get_hints() is not None:
         return "sharding hints are set"
     layers = cache["layers"]
-    if set(cache) - _FIXED_CACHE or any(set(e) != {"k", "v"} for e in layers):
+    if set(cache) - _FIXED_CACHE or any(_in_place(e) is None for e in layers):
         return "the cache holds an entry that the step replaces (a recurrent state)"
-    tensors = [token, cache["len"], *(t for e in layers for t in (e["k"], e["v"]))]
+    tensors = [token, cache["len"], *(t for e in layers for t in e.values())]
     if "enc_out" in cache:
         tensors.append(cache["enc_out"])
     if any(isinstance(t, DTensor) for t in tensors):
@@ -130,19 +130,29 @@ def why_eager(params: Params, cache: Params, token: torch.Tensor) -> str | None:
     return None
 
 
+def _in_place(e: Params) -> tuple[str, str] | None:
+    """The names of a layer entry's two tensors where the step writes it in
+    place (attention's ``k``, ``v``; MLA's ``c_kv``, ``k_pe``), else None.
+    Cheap: a replay checks every layer's entry on the host before it runs."""
+    a, b = ("k", "v") if "k" in e else ("c_kv", "k_pe")
+    return (a, b) if len(e) == 2 and a in e and b in e else None
+
+
 def _layout(t: torch.Tensor) -> tuple:
     return t.data_ptr(), t.shape, t.stride()
 
 
 def _addresses(cache: Params) -> tuple | None:
     """Where and how a graph reads the cache: the address, shape and strides
-    of each layer's K and V, then of ``enc_out``; None for a cache with
-    another kind of entry."""
+    of each tensor of each layer's entry (K and V, or MLA's ``c_kv`` and
+    ``k_pe``), then of ``enc_out``; None for a cache with another kind of
+    entry."""
     out = []
     for e in cache["layers"]:
-        if len(e) != 2 or "k" not in e or "v" not in e:
+        names = _in_place(e)
+        if names is None:
             return None
-        out += (_layout(e["k"]), _layout(e["v"]))
+        out += (_layout(e[names[0]]), _layout(e[names[1]]))
     if "enc_out" in cache:
         out.append(_layout(cache["enc_out"]))
     return tuple(out)

@@ -35,6 +35,25 @@ class SSMCfg:
 
 
 @dataclass(frozen=True)
+class MLACfg:
+    """Multi-head latent attention (DeepSeek-V2): a ``kv_lora_rank``-wide
+    latent of K and V and one shared RoPE key of ``qk_rope_head_dim``, with
+    YaRN's rotary scaling (``factor`` over ``original_max_position``)."""
+
+    kv_lora_rank: int = 512
+    q_lora_rank: int = 0  # 0: q is one projection of x (no q LoRA)
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    factor: float = 40.0
+    original_max_position: int = 4096
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 0.707
+    mscale_all_dim: float = 0.707
+
+
+@dataclass(frozen=True)
 class ModelConfig:
     name: str
     n_layers: int
@@ -46,7 +65,7 @@ class ModelConfig:
     head_dim: int = 0  # 0 -> d_model // n_heads
 
     # Block layout: (mixer, ffn) pairs; mixer in attn/attn_local/mamba/mlstm/
-    # slstm, ffn in mlp/moe/dense0/none.
+    # slstm (and mla, on an MLAModelConfig), ffn in mlp/moe/dense0/none.
     prefix_pattern: tuple[tuple[str, str], ...] = ()
     pattern: tuple[tuple[str, str], ...] = (("attn", "mlp"),)
 
@@ -189,6 +208,28 @@ class ModelConfig:
         return self.param_count() - n_moe * per_moe_layer
 
 
+@dataclass(frozen=True)
+class MLAModelConfig(ModelConfig):
+    """A config whose mixer may be ``mla``: :class:`ModelConfig` and its
+    ``mla`` section.  A subclass, so that the ten archs' configs keep the
+    reference's fields exactly (``dataclasses.asdict`` of each equals the
+    JAX package's)."""
+
+    mla: MLACfg = field(default_factory=MLACfg)
+
+    def _mixer_params(self, mixer: str) -> int:
+        if mixer != "mla":
+            return super()._mixer_params(mixer)
+        m, d, h = self.mla, self.d_model, self.n_heads
+        return (
+            d * h * (m.qk_nope_head_dim + m.qk_rope_head_dim)  # q
+            + d * (m.kv_lora_rank + m.qk_rope_head_dim)  # kv_a: the latent and the RoPE key
+            + m.kv_lora_rank  # kv_norm
+            + m.kv_lora_rank * h * (m.qk_nope_head_dim + m.v_head_dim)  # kv_b
+            + h * m.v_head_dim * d  # o
+        )
+
+
 def unrolled_variant(cfg: ModelConfig, *, ssm_chunk: int | None = None) -> ModelConfig:
     """All layers in ``prefix_pattern``, as the reference's (whose dry-run
     unrolls its scanned stack so that ``cost_analysis`` sees every layer).
@@ -215,6 +256,9 @@ def smoke_variant(cfg: ModelConfig) -> ModelConfig:
             d_expert=32,
         )
     n_heads = min(cfg.n_heads, 4)
+    if isinstance(cfg, MLAModelConfig):
+        cfg = dataclasses.replace(cfg, mla=dataclasses.replace(
+            cfg.mla, kv_lora_rank=32, qk_nope_head_dim=16, qk_rope_head_dim=8, v_head_dim=16))
     return dataclasses.replace(
         cfg,
         name=cfg.name + "-smoke",

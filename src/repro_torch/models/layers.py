@@ -161,9 +161,12 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
     return 1.0 / (theta**exps)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """x: [B, L, H, D]; positions: [B, L] or [L]."""
-    freqs = rope_freqs(x.shape[-1], theta, x.device)  # [D/2]
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               freqs: torch.Tensor | None = None) -> torch.Tensor:
+    """x: [B, L, H, D]; positions: [B, L] or [L]; ``freqs`` [D/2], the
+    inverse frequencies, by default :func:`rope_freqs` of ``theta``."""
+    if freqs is None:
+        freqs = rope_freqs(x.shape[-1], theta, x.device)  # [D/2]
     if positions.ndim == 1:
         positions = positions[None, :]
     angles = positions[..., None].float() * freqs  # [B, L, D/2]

@@ -1,8 +1,9 @@
 """Model assembly for every family: blocks → layer stacks → LM / enc-dec forward.
 
 The port of ``repro.models.model``.  A block is a mixer (attention, global
-``attn`` or sliding-window ``attn_local``, or the recurrent ``mamba``,
-``mlstm`` and ``slstm`` of :mod:`repro_torch.models.recurrent`), an
+``attn`` or sliding-window ``attn_local``, the recurrent ``mamba``,
+``mlstm`` and ``slstm`` of :mod:`repro_torch.models.recurrent`, or the
+port's own latent attention ``mla`` of :mod:`repro_torch.models.mla`), an
 optional cross-attention over the encoder's output (encoder-decoder
 models), and a dense MLP (``mlp``, ``dense0``), a Mixture-of-Experts FFN
 (``moe``, :mod:`repro_torch.models.moe`) or nothing; with
@@ -29,7 +30,8 @@ A block is ``{"norm1", "mixer", "post_norm1"?, "norm_cross"?, "cross"?,
 The cache is ``{"len", "layers"}`` plus ``"enc_out"`` for an
 encoder-decoder model: one entry a layer, by its mixer, as the reference's
 ``init_block_cache``: ``{"k", "v"}`` for attention (global or local),
-written in place (see ``layers.attention_block``), and ``{"state":
+written in place (see ``layers.attention_block``), ``{"c_kv", "k_pe"}``
+for MLA, also written in place, and ``{"state":
 <NamedTuple>}`` for a recurrent mixer, replaced by the state each call
 returns.  Prefill encodes ``src_embeds`` into ``enc_out``, and every
 decoder call recomputes each layer's cross K/V from it, as the reference
@@ -81,6 +83,7 @@ from .layers import (
     linear,
     split_heads,
 )
+from .mla import init_mla, init_mla_cache, mla_block
 from .moe import apply_moe, init_moe
 from .recurrent import (
     init_mamba,
@@ -123,7 +126,7 @@ def encoder_config(cfg: ModelConfig) -> ModelConfig:
 
 
 _MIXER_INIT = {"attn": init_attention, "attn_local": init_attention, "mamba": init_mamba,
-               "mlstm": init_mlstm, "slstm": init_slstm}
+               "mlstm": init_mlstm, "slstm": init_slstm, "mla": init_mla}
 _MIXER_APPLY = {"mamba": mamba_mix, "mlstm": mlstm_mix, "slstm": slstm_mix}
 
 
@@ -158,6 +161,8 @@ def init_block_cache(
     if mixer in ("attn", "attn_local"):
         kv = init_kv_cache(cfg, batch, max_len, dtype, device)
         return {"k": kv["k"], "v": kv["v"]}
+    if mixer == "mla":
+        return init_mla_cache(cfg, batch, max_len, dtype, device)
     if mixer == "mamba":
         return {"state": init_mamba_state(cfg, batch, dtype, device)}
     if mixer == "mlstm":
@@ -193,6 +198,11 @@ def apply_block(
         )
         if upd is not None:
             new_cache = {"k": upd["k"], "v": upd["v"]}
+    elif mixer == "mla":
+        mla_cache = None if cache is None else {**cache, "len": cache_len}
+        out, upd = mla_block(cfg, p["mixer"], h, positions=positions, cache=mla_cache)
+        if upd is not None:
+            new_cache = {"c_kv": upd["c_kv"], "k_pe": upd["k_pe"]}
     else:
         out, st = _MIXER_APPLY[mixer](cfg, p["mixer"], h, cache["state"] if cache else None)
         new_cache = {"state": st}
@@ -462,8 +472,9 @@ class Model:
     def init_cache(self, batch: int, max_len: int) -> Params:
         """``{"len": int32 scalar, "layers": [entry per layer]}`` on the device,
         and ``"enc_out"`` [batch, frontend_len, d] for an encoder-decoder model;
-        an entry is ``{"k", "v"}`` for attention, ``{"state"}`` for a recurrent
-        mixer.  A vision model's ``max_len`` counts its patches."""
+        an entry is ``{"k", "v"}`` for attention, ``{"c_kv", "k_pe"}`` for MLA,
+        ``{"state"}`` for a recurrent mixer.  A vision model's ``max_len``
+        counts its patches."""
         cfg = self.cfg
         dtype = _dtype(cfg)
         layers = [

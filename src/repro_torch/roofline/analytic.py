@@ -55,6 +55,11 @@ def _mixer_fwd_flops_per_token(
         l_eff = _attn_len(kind, seq_len, window)
         attn = 4.0 * cfg.q_dim * l_eff  # qk^T + pv
         return proj + attn
+    if mixer == "mla":  # the port's own (an MLAModelConfig): its projections, then q·k over n + r and p·v
+        a = cfg.mla
+        proj = 2.0 * (cfg._mixer_params("mla") - a.kv_lora_rank)  # all but the latent's norm
+        per_key = 2.0 * cfg.n_heads * (a.qk_nope_head_dim + a.qk_rope_head_dim + a.v_head_dim)
+        return proj + per_key * _attn_len(kind, seq_len, 0)
     if mixer == "mamba":
         di = cfg.ssm.expand * d
         ds = cfg.ssm.d_state

@@ -274,7 +274,7 @@ def test_kernel_path_launches_as_chip_smoke_expects(arch, monkeypatch):
         counts.append({k: v - counts[-1][k] for k, v in calls.items()})
         return pre, dec
 
-    calls = {"rmsnorm": 0, "flash_attention": 0, "decode_attention": 0}
+    calls = {"rmsnorm": 0, "flash_attention": 0, "decode_attention": 0, "mla_decode": 0}
     counts = []
     with torch.no_grad():
         plain = run()

@@ -759,8 +759,9 @@ def test_launch_counters_add_under_their_locks():
     waits and adds nothing; released, it adds its one.  And 4 threads adding
     20,000 each, switching every microsecond, add 80,000."""
     from repro_torch.kernels import decode_attention as kdecode
+    from repro_torch.kernels import mla_decode as kmla
 
-    mods = {"rmsnorm": krmsnorm, "flash_attention": kflash, "decode_attention": kdecode}
+    mods = {"rmsnorm": krmsnorm, "flash_attention": kflash, "decode_attention": kdecode, "mla_decode": kmla}
     for name, mod in mods.items():
         kops.reset_launch_counts()
         with mod._launch_lock:
