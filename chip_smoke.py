@@ -8,7 +8,7 @@ Run from the root of a checkout, with no arguments::
 Phases, each of which exits nonzero on failure:
 
 1. Environment: torch and CUDA versions, the card, its power limit.
-2. Build the four CUDA kernels from ``src/repro_torch/csrc`` (in parallel);
+2. Build the five CUDA kernels from ``src/repro_torch/csrc`` (in parallel);
    print each rmsnorm instance's registers and fail if any spills.
 3. Hold each kernel against its plain PyTorch version at the serving shapes
    and beyond (rmsnorm at the zoo's widths and ragged ones, 1 to 8192 rows,
@@ -294,6 +294,17 @@ Phases, each of which exits nonzero on failure:
    one MLA decode launch a layer and step, none of decode attention.  Its
    row joins the kernels' record.  The child's failure fails the run.
 
+20. The MoE slot kernel, in a ninth child process (``chip_smoke.py
+   --moe-slots OUT``): against its plain version, bit for bit, at the
+   benchmark cells' slot calls (:data:`SLOT_CALLS`: a decode step's 192 and
+   24 choices, a granite pod's 8192 at 32 experts, the prefills' 105,600,
+   392,448 and 768,000), at the chunk's edges (:data:`SLOT_EDGES`) and with
+   a collapsed router; inside a captured and replayed CUDA graph and under
+   ``torch.cuda.set_sync_debug_mode("error")``; its time at each cell's
+   shape (cold L2, median of 25) beside its plain version's, one
+   ``torch.cumsum`` over the one-hot (the library's yardstick) and its
+   bound of 17 bytes a choice.  Its row joins the kernels' record.
+
 ``python3 chip_smoke.py --rmsnorm-times ROOT`` only times the rmsnorm
 wrapper of the checkout at ROOT (see :func:`rmsnorm_times`), and
 ``--dataplane-times ROOT`` only its untraced data plane (see
@@ -303,7 +314,7 @@ checkouts at A and B in alternating pairs (see :func:`dataplane_compare`).
 The line before the last is the kernels' JSON record (each kernel's
 launches on each path under ``launches_by_path``), the data plane's,
 the traced phase's, training's, the MoE phase's, the recurrent phase's,
-the families', phase 13's to phase 19's numbers above the card's name; the last line is
+the families', phase 13's to phase 20's numbers above the card's name; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 rest of the repository beside it, it exits nonzero and prints no result.
 """
@@ -581,6 +592,19 @@ GW_REQUESTS, GW_CLIENTS, GW_SHAPE, GW_GATE_S = 200, 8, (512, 3072), 30.0
 # own rounding; a kernel that drops a row or half of P reads ~1e-2.
 MLA_ARCH = "deepseek-v2-lite"
 MLA_BATCH, MLA_CACHE, MLA_KV, MLA_REL_L2_TOL = 4, 32150, 32100, 4e-3
+# Phase 20: the MoE slot kernel at the benchmark cells' calls, a name each:
+# (arch, tokens a call); and at (tokens, k, experts) on the edges of its
+# chunk of 4096 choices, at its 256 experts and at jamba's 16 of top-2.
+SLOT_CALLS = {
+    "deepseek-moe-16b decode step": ("deepseek-moe-16b", 32),
+    "deepseek-v2-lite decode step": ("deepseek-v2-lite", 4),
+    "granite-moe-1b-a400m train pod": ("granite-moe-1b-a400m", 2 * 512),
+    "deepseek-moe-16b.decode prefill": ("deepseek-moe-16b", 32 * 550),
+    "deepseek-moe-16b.prefill prefill": ("deepseek-moe-16b", 16 * 4088),
+    "deepseek-v2-lite prefill": ("deepseek-v2-lite", 4 * 32000),
+}
+SLOT_EDGES = ((1, 1, 256), (4095, 1, 256), (4096, 1, 256), (4097, 1, 256), (8191, 1, 64), (8192, 1, 64),
+              (8193, 1, 64), (2048, 2, 16), (2049, 2, 16))
 
 # The leaves that a bf16 model keeps in fp32 (the mLSTM's input and forget
 # gates, the sLSTM's gate biases): AdamW must leave them fp32.
@@ -2139,7 +2163,7 @@ def phase_train(torch, smi: str, sku: str) -> dict:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n = TRAIN_LAYERS
     want = {"rmsnorm": TRAIN_PODS * ((2 * n + 1) + 2 * n),
-            "flash_attention": TRAIN_PODS * 2 * n, "decode_attention": 0, "mla_decode": 0}
+            "flash_attention": TRAIN_PODS * 2 * n, "decode_attention": 0, "mla_decode": 0, "moe_slots": 0}
     print(f"[9] launches in one iteration {counts} (expected {want})")
     if counts != want:
         fail("the training path did not launch each kernel as expected")
@@ -2351,7 +2375,8 @@ def serve_launches(cfg) -> tuple[dict, dict]:
     softcap, which the decode kernel does not take, and decode attention at
     the others.  An MLA mixer (``mla``) is flash at a prefill and the MLA
     decode kernel at a step, and one rmsnorm more (its latent's).  A
-    recurrent mixer launches none."""
+    recurrent mixer launches none.  Each MoE FFN calls the slot kernel
+    once, at a prefill and at a step."""
     kinds = cfg.layer_seq()
     cross = cfg.is_encoder_decoder
     per_ffn = 1 + cfg.post_block_norm
@@ -2364,12 +2389,13 @@ def serve_launches(cfg) -> tuple[dict, dict]:
     n_cross = len(kinds) if cross else 0
     n_enc = cfg.n_enc_layers if cross else 0
     n_mla = sum(m == "mla" for m, _ in kinds)
+    n_moe = sum(f == "moe" for _, f in kinds)
     if cfg.norm == "rmsnorm":
         norms += n_mla
     return ({"rmsnorm": norms + enc_norms, "flash_attention": len(attn) + n_cross + n_enc + n_mla,
-             "decode_attention": 0, "mla_decode": 0},
+             "decode_attention": 0, "mla_decode": 0, "moe_slots": n_moe},
             {"rmsnorm": norms, "flash_attention": to_flash + n_cross, "decode_attention": len(attn) - to_flash,
-             "mla_decode": n_mla})
+             "mla_decode": n_mla, "moe_slots": n_moe})
 
 
 def train_launches(cfg, pods: int) -> dict:
@@ -2380,7 +2406,7 @@ def train_launches(cfg, pods: int) -> dict:
     fwd, _ = serve_launches(cfg)
     final = int(fwd["rmsnorm"] > 0)
     return {"rmsnorm": pods * (2 * fwd["rmsnorm"] - final), "flash_attention": pods * 2 * fwd["flash_attention"],
-            "decode_attention": 0, "mla_decode": 0}
+            "decode_attention": 0, "mla_decode": 0, "moe_slots": pods * 2 * fwd["moe_slots"]}
 
 
 def serve_counted(torch, tag: str, cfg, smi: str, n_layers=None) -> tuple[dict, dict, float]:
@@ -2622,7 +2648,7 @@ def moe_train(torch, smi: str, sku: str) -> dict:
     first_ms = (time.perf_counter() - t0) * 1e3
     counts = kops.launch_counts()
     want = {"rmsnorm": TRAIN_PODS * ((2 * n + 1) + 2 * n), "flash_attention": TRAIN_PODS * 2 * n,
-            "decode_attention": 0, "mla_decode": 0}
+            "decode_attention": 0, "mla_decode": 0, "moe_slots": TRAIN_PODS * 2 * n}
     print(f"[10] {MOE_TRAIN_ARCH} launches in one iteration {counts} (expected {want}); loss "
           f"{m['loss']:.6f}, ce {m['ce']:.6f}, aux {m['aux']:.6f}, grad norm {m['grad_norm']:.4f}")
     if counts != want:
@@ -3168,11 +3194,14 @@ def phase_training(torch, smi: str, sku: str) -> dict:
 # -- phase 14: distribution on the card -------------------------------------------------
 
 
-def dist_launches(cfg) -> dict:
+def dist_launches(cfg, hinted: bool) -> dict:
     """The launches of one fwdbwd (``Model.loss`` and its grads) of
     decoder-only ``cfg`` with remat: one pod's training iteration's
-    (:func:`train_launches`), hinted or not."""
-    return train_launches(cfg, 1)
+    (:func:`train_launches`), but for the MoE slot kernel where ``hinted``:
+    H2's expert-local dispatch takes its slots from the reference's own
+    masked cumsum."""
+    want = train_launches(cfg, 1)
+    return {**want, "moe_slots": 0} if hinted else want
 
 
 def dist_fwdbwd(torch, model, params, batch) -> tuple:
@@ -3215,7 +3244,7 @@ def dist_cell(torch, cell: str, mesh, smi: str, device: str = "cuda") -> dict:
     and placed by ``distribute_params(param_specs(...))``; the batch placed by
     ``batch_specs``.  One fwdbwd with ``set_hints`` on the DTensors and one
     without hints on the plain tensors, each from launch counts of 0: the
-    counts equal each other and :func:`dist_launches`; H1 is taken (and H2
+    counts equal :func:`dist_launches` of each mode; H1 is taken (and H2
     where the arch has MoE FFNs); loss and aux within DIST_LOSS_TOL, every
     grad leaf within DIST_GRAD_TOL (the embedding's by DIST_EMBED_REL_L2 too);
     every param and grad (placed as its param by ``redistribute_like``) a
@@ -3276,10 +3305,10 @@ def dist_cell(torch, cell: str, mesh, smi: str, device: str = "cuda") -> dict:
         sync()
         out["launches"][mode] = kops.launch_counts()
         out[f"branches_{mode}"] = dict(branches)
-    want = dist_launches(cfg)
+    want = {mode: dist_launches(cfg, mode == "hinted") for mode in ("unhinted", "hinted")}
     print(f"[14] {cell} launches in one fwdbwd: unhinted {out['launches']['unhinted']}, hinted "
           f"{out['launches']['hinted']} (expected {want}); hinted branches {out['branches_hinted']}")
-    if not out["launches"]["unhinted"] == out["launches"]["hinted"] == want:
+    if out["launches"] != want:
         fail(f"{cell}: the hinted and unhinted fwdbwd did not launch each kernel as expected")
     moe = any(f == "moe" for _, f in cfg.layer_seq())
     if out["branches_hinted"]["H1"] == 0 or (moe and out["branches_hinted"]["H2"] == 0) or any(
@@ -3476,7 +3505,7 @@ def r_decode(torch, smi: str, sku: str) -> dict:
         torch.cuda.synchronize()
         launches = kops.launch_counts()
     n = len(cfg.layer_seq())
-    want = {"rmsnorm": 2 * n + 1, "flash_attention": 0, "decode_attention": n, "mla_decode": 0}
+    want = {"rmsnorm": 2 * n + 1, "flash_attention": 0, "decode_attention": n, "mla_decode": 0, "moe_slots": 0}
     print(f"[15] R-decode launches {launches} (expected {want})")
     if launches != want:
         fail("R-decode did not launch each kernel as expected")
@@ -3769,7 +3798,8 @@ def phase_threaded(torch, smi: str, sku: str, device: str = "cuda") -> dict:
     torch.cuda.synchronize()
     t_many = time.perf_counter() - t0
     counts = kops.launch_counts()
-    want = {"rmsnorm": 2 * SERVE_INSTANCES, "flash_attention": 0, "decode_attention": 0, "mla_decode": 0}
+    want = {"rmsnorm": 2 * SERVE_INSTANCES, "flash_attention": 0, "decode_attention": 0, "mla_decode": 0,
+            "moe_slots": 0}
     if counts != want:
         fail(f"S-serve run_many launched {counts}, not {want}")
     if len(many) != len(per):
@@ -4301,7 +4331,8 @@ def phase_gateway(torch, smi: str, sku: str, device: str = "cuda", start_method:
         counts = kops.launch_counts()
         if errors or len(answers) != GW_REQUESTS:
             fail(f"gateway: {len(answers)} of {GW_REQUESTS} requests answered; errors {errors[:3]}")
-        want = {"rmsnorm": norms * GW_REQUESTS, "flash_attention": 0, "decode_attention": 0, "mla_decode": 0}
+        want = {"rmsnorm": norms * GW_REQUESTS, "flash_attention": 0, "decode_attention": 0, "mla_decode": 0,
+                "moe_slots": 0}
         if counts != want:
             fail(f"gateway: {GW_REQUESTS} requests launched {counts}, not {want}")
         for i in range(GW_REQUESTS):
@@ -4547,6 +4578,115 @@ def phase_mla(torch, smi: str, sku: str) -> dict:
             "decode_ms": res["decode_s"] * 1e3, "tok_per_s": res["tok_per_s"], "peak_gb": peak_gb, "device": smi}
 
 
+# -- phase 20: the MoE slot kernel ---------------------------------------------------------
+
+
+def slot_ids(torch, t: int, k: int, e: int, seed: int, device, collapsed: bool = False):
+    """A router's ``[T, k]`` choices as the model hands them to the slot
+    kernel: the first k columns (a strided view) of a stable descending sort
+    of skewed scores, so each token's k experts differ and some experts are
+    far more popular.  ``collapsed``: every token the same k experts."""
+    if collapsed:
+        return torch.arange(k, device=device).expand(t, k).clone()
+    g = torch.Generator(device=device).manual_seed(seed)
+    scores = torch.randn(t, e, generator=g, device=device) + 2.0 * torch.randn(e, generator=g, device=device)
+    return torch.sort(scores, dim=-1, descending=True, stable=True)[1][:, :k]
+
+
+def slot_shapes(get_config) -> dict:
+    """Phase 20's shapes, a name each: ``(T, k, E, capacity)``, the edges'
+    at a capacity factor of 1.25."""
+    from types import SimpleNamespace
+
+    from repro_torch.models.moe import moe_capacity
+
+    shapes = {}
+    for name, (arch, t) in SLOT_CALLS.items():
+        cfg = get_config(arch)
+        shapes[name] = (t, cfg.moe.top_k, cfg.moe.n_experts, moe_capacity(cfg, t))
+    for t, k, e in SLOT_EDGES:
+        cfg = SimpleNamespace(moe=SimpleNamespace(n_experts=e, top_k=k, capacity_factor=1.25))
+        shapes[f"edge {t * k} choices E{e} k{k}"] = (t, k, e, moe_capacity(cfg, t))
+    return shapes
+
+
+def phase_moe_slots(torch, smi: str, sku: str) -> dict:
+    """Phase 20: the MoE slot kernel against its plain version, bit for bit,
+    at every shape of :func:`slot_shapes` and with a collapsed router, in a
+    replayed CUDA graph and with no host sync; timed at the cells' calls.
+    Returns the kernel's rows."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import moe_slots as kslots
+    from repro_torch.kernels import ref
+
+    shapes = slot_shapes(get_config)
+
+    def exact(name, ids, e, cap):
+        got, want = kslots.moe_slots(ids, e, cap), ref.moe_slots_ref(ids, e, cap)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            bad = int((got[0] != want[0]).sum()) + int((got[1] != want[1]).sum())
+            fail(f"moe_slots differs from its plain version at {name}: {bad} of {2 * want[0].numel()} values")
+
+    for i, (name, (t, k, e, cap)) in enumerate(shapes.items()):
+        exact(name, slot_ids(torch, t, k, e, SEED + i, "cuda"), e, cap)
+        exact(f"{name}, collapsed", slot_ids(torch, t, k, e, 0, "cuda", collapsed=True), e, cap)
+    print(f"[20] moe_slots equals its plain version bit for bit at {len(shapes)} shapes, routed and collapsed: "
+          f"{', '.join(f'{n} ({t * k})' for n, (t, k, _, _) in shapes.items())}")
+
+    # Captured into a CUDA graph, replayed on new choices; no host sync.
+    replays = 0
+    for name in ("deepseek-moe-16b decode step", "deepseek-moe-16b.decode prefill"):
+        t, k, e, cap = shapes[name]
+        static = slot_ids(torch, t, k, e, SEED, "cuda")
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            kslots.moe_slots(static, e, cap)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = kslots.moe_slots(static, e, cap)
+        for seed in range(3):
+            ids = slot_ids(torch, t, k, e, SEED + 100 + seed, "cuda")
+            static.copy_(ids)
+            graph.replay()
+            want = ref.moe_slots_ref(ids, e, cap)
+            if not (torch.equal(out[0], want[0]) and torch.equal(out[1], want[1])):
+                fail(f"moe_slots replayed from a CUDA graph differs from its plain version at {name}")
+            replays += 1
+        del graph
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            kslots.moe_slots(static, e, cap)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print(f"[20] moe_slots replayed {replays} times from CUDA graphs, each equal to its plain version; no host "
+          f"sync under set_sync_debug_mode('error')")
+
+    bench = Bench(torch, sku)
+    rows = []
+    for name in SLOT_CALLS:
+        t, k, e, cap = shapes[name]
+        ids = slot_ids(torch, t, k, e, SEED, "cuda")
+        onehot = torch.nn.functional.one_hot(ids.reshape(-1), e).to(torch.int32)
+        tk = bench.ms(lambda: kslots.moe_slots(ids, e, cap))
+        tp = bench.ms(lambda: ref.moe_slots_ref(ids, e, cap))
+        tl = bench.ms(lambda: torch.cumsum(onehot, dim=0, dtype=torch.int32))
+        bound, by = bench.bound(17 * t * k, 0, "bf16")
+        chunks, launches = kslots.plan(t * k)
+        shape = f"{name}: T {t} x k {k} = {t * k} choices, E {e}, C {cap}"
+        print(f"[20] moe_slots {shape}, {launches} launch(es) of {chunks} block(s): kernel {us(tk)}, plain "
+              f"{us(tp)}, library (one cumsum) {us(tl)}; bound {us(bound)} ({by}), {bound / tk:.3g} of bound  "
+              f"({smi})")
+        rows.append({"shape": shape, "choices": t * k, "launches_a_call": launches, "ms": tk, "plain_ms": tp,
+                     "library_ms": tl, "bound_ms": bound, "bound_by": by})
+        del onehot
+    del bench
+    torch.cuda.empty_cache()
+    return {"rows": rows, "shapes": len(shapes), "replays": replays, "device": smi}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rmsnorm-times", metavar="ROOT", type=Path,
@@ -4572,6 +4712,8 @@ def main() -> int:
                     help="only phase 18, the gateway over HTTP, its result to OUT (a child process)")
     ap.add_argument("--mla", metavar="OUT", type=Path,
                     help="only phase 19, DeepSeek-V2-Lite's latent attention, its result to OUT (a child process)")
+    ap.add_argument("--moe-slots", metavar="OUT", type=Path,
+                    help="only phase 20, the MoE slot kernel, its result to OUT (a child process)")
     opts = ap.parse_args()
     # One process makes and frees models of up to 34 GB and trains two more:
     # with fixed segments the freed memory splinters, and phase 11's jamba
@@ -4620,6 +4762,8 @@ def main() -> int:
         return child(torch, opts.gateway, phase_gateway)
     if opts.mla is not None:
         return child(torch, opts.mla, phase_mla)
+    if opts.moe_slots is not None:
+        return child(torch, opts.moe_slots, phase_moe_slots)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -4686,6 +4830,9 @@ def main() -> int:
     # -- 19. DeepSeek-V2-Lite: the MLA decode kernel, and the model served ------------------
     mla = run_child("19", "--mla", "latent attention")
 
+    # -- 20. the MoE slot kernel ------------------------------------------------------------
+    slots = run_child("20", "--moe-slots", "the MoE slot kernel")
+
     # -- 3. kernels vs plain -----------------------------------------------------
     bench = Bench(torch, sku)
     rows = phase_kernels(torch, bench)
@@ -4710,6 +4857,7 @@ def main() -> int:
         "flash_attention": n_layers,
         "decode_attention": n_layers * steps,
         "mla_decode": 0,
+        "moe_slots": 0,
     }
     print(f"[4] launches {counts} (expected {want})")
     if counts != want:
@@ -4833,6 +4981,21 @@ def main() -> int:
         # Every other path's expected counts hold it at 0.
         "launches_by_path": {f"serve {MLA_ARCH}": mla["launches"]["mla_decode"]},
     })
+    r = slots["rows"][0]  # a decode step's call; "rows" has every cell's
+    record.append({
+        "name": "moe_slots", "route": "cuda", "source": src.format("moe_slots"), "replaces": None,
+        "launches": moe["deepseek-moe-16b"]["launches"]["serve"]["moe_slots"], "ms": r["ms"], "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"], "shape": r["shape"],
+        "rows": slots["rows"],
+        "launches_by_path": {
+            **{f"serve {arch}": {path: c["moe_slots"] for path, c in moe[arch]["launches"].items()}
+               for arch in MOE_ARCHS},
+            f"train {MOE_TRAIN_ARCH}": moe["train"]["launches"]["moe_slots"],
+            f"serve {MLA_ARCH}": mla["launches"]["moe_slots"],
+            **{f"fwdbwd {cell}": {mode: c["moe_slots"] for mode, c in distribution[cell]["launches"].items()}
+               for cell in DIST_CELLS},
+        },
+    })
     print(json.dumps({"dataplane": dataplane}))
     print(json.dumps({"traced": traced}))
     print(json.dumps({"train": train}))
@@ -4846,6 +5009,7 @@ def main() -> int:
     print(json.dumps({"multiprocess": multiprocess}))
     print(json.dumps({"gateway": gateway}))
     print(json.dumps({"mla": mla}))
+    print(json.dumps({"moe_slots": slots}))
     print(f"kernels: {', '.join(r['name'] for r in record)}; {time.monotonic() - t_start:.1f} s in all")
     print(smi)
     print(json.dumps({"kernels": record}))

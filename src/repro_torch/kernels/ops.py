@@ -1,4 +1,4 @@
-"""Model-layout wrappers around the four kernels, and their launch counts.
+"""Model-layout wrappers around the five kernels, and their launch counts.
 
 The model keeps activations as ``[B, L, H, d]`` and its cache as
 ``[B, M, Hkv, d]``.  Where ``repro.kernels.ops`` transposes q/k/v (and the
@@ -6,7 +6,7 @@ whole cache, every decode step) into the kernels' ``[B, H, L, d]``, these
 wrappers pass transposed *views*: the kernels take strides, so nothing is
 copied.  Each kernel module counts its own launches in an integer that
 it adds to under a lock, as the ``inprocess`` backend fires the trainer's
-pods on threads that launch at once; :func:`launch_counts` reads the four,
+pods on threads that launch at once; :func:`launch_counts` reads the five,
 :func:`reset_launch_counts` zeroes them, and :func:`add_launch_counts` adds
 to them for launches that no wrapper call made (a CUDA graph's replay).
 
@@ -17,7 +17,8 @@ their kernel under :class:`KernelWithPlainGrad`, whose backward recomputes
 the plain version of ``ref.py`` on the saved inputs and differentiates it;
 otherwise (serving runs under ``torch.inference_mode``) they call the kernel
 directly.  Decode attention and the absorbed MLA decode are for serving
-only and raise under grad.
+only and raise under grad.  The MoE's slots are integers, which no gradient
+reaches.
 
 The kernels take raw pointers, so a DTensor must never reach them: each
 wrapper raises on one.  The model calls them on a DTensor's local shards
@@ -32,10 +33,12 @@ from . import _build
 from . import decode_attention as _decode
 from . import flash_attention as _flash
 from . import mla_decode as _mla
+from . import moe_slots as _slots
 from . import ref
 from . import rmsnorm as _rmsnorm
 
-_MODULES = {"rmsnorm": _rmsnorm, "flash_attention": _flash, "decode_attention": _decode, "mla_decode": _mla}
+_MODULES = {"rmsnorm": _rmsnorm, "flash_attention": _flash, "decode_attention": _decode, "mla_decode": _mla,
+            "moe_slots": _slots}
 
 
 class KernelWithPlainGrad(torch.autograd.Function):
@@ -115,6 +118,12 @@ def mla_decode(q_lat, q_pe, c_kv, k_pe, kv_len, scale: float):
     if _grad_needed(q_lat, q_pe, c_kv, k_pe):
         raise RuntimeError("the absorbed MLA decode has no gradient; run decode under torch.inference_mode()")
     return _mla.mla_decode(q_lat, q_pe, c_kv, k_pe, kv_len, scale)
+
+
+def moe_slots(experts: torch.Tensor, n_experts: int, capacity: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """experts: [T, k] int64 → (slot [T·k] int64, keep [T·k] bool) (see :mod:`.moe_slots`)."""
+    _local_only(experts)
+    return _slots.moe_slots(experts, n_experts, capacity)
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:

@@ -8,7 +8,9 @@ tensor on the CPU, and ``chip_smoke.py`` holds the kernels against them on the
 card.  ``decode_attention_split_ref`` spells out the decode kernel's split
 over the cache and its merge, for the tests.  ``kv_len`` and ``q_offset`` may
 be ints or device int32 scalars.  ``mla_decode_ref`` is the absorbed MLA
-decode kernel's, which has no TPU original (the JAX package has no MLA).
+decode kernel's, which has no TPU original (the JAX package has no MLA), and
+``moe_slots_ref`` the MoE slot kernel's, the lines the JAX package leaves to
+XLA (``repro/models/moe.py``, ``apply_moe``).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1e30
 
@@ -126,6 +129,17 @@ def mla_decode_ref(
     mask = torch.arange(c_kv.shape[1], device=q_lat.device)[None, None, :] < kv_len
     p = torch.softmax(torch.where(mask, s, NEG_INF), dim=-1)
     return torch.einsum("bhm,bmc->bhc", p, c_kv.float()).to(q_lat.dtype)
+
+
+def moe_slots_ref(experts: torch.Tensor, n_experts: int, capacity: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Choice (t, j) of ``experts`` [T, k] takes the next free slot of its
+    expert: ``(slot, keep)``, each ``[T·k]``, from a running count over the
+    choice-major one-hot."""
+    flat_e = experts.reshape(-1)  # [T·k], choice-major
+    onehot = F.one_hot(flat_e, n_experts).to(torch.int32)  # [T·k, E]
+    pos = torch.cumsum(onehot, dim=0, dtype=torch.int32) - onehot  # prior same-expert choices
+    slot = torch.gather(pos, 1, flat_e[:, None])[:, 0].long()
+    return slot, slot < capacity
 
 
 def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6) -> torch.Tensor:

@@ -6,8 +6,10 @@ The port of ``repro.models.moe`` (``init_moe``, ``moe_capacity``,
 1. fp32 router logits → softmax → top-k (expert, weight) choices per token,
    the weights renormalised over the k;
 2. each choice gets a *slot* inside its expert's capacity buffer from a
-   running count (cumsum) over the choice-major flattened ``[T·k]`` list
-   (token t owns rows ``t·k … t·k+k-1``); choices beyond capacity
+   running count over the choice-major flattened ``[T·k]`` list (token t
+   owns rows ``t·k … t·k+k-1``): on the card the ``moe_slots`` kernel
+   (``kernels/moe_slots.py``), elsewhere the reference's one-hot cumsum
+   (``kernels/ref.py``), the same integers either way; choices beyond capacity
    ``C = max(4, round_up_4(ceil(T·k/E · capacity_factor)))`` are dropped,
    so their token falls through the residual (Switch behaviour);
 3. ``x`` rows are scattered into an ``[E, C, d]`` buffer, the experts run as
@@ -42,7 +44,8 @@ over the sequence when the residual stream is sequence-sharded (H4).  The
 router statistics of the aux loss are averaged over the data ranks.  The
 body, :func:`_local_moe_body`, is the reference's line for line (no router
 bias, as there), on ``hints.shard_map`` with the reference's in- and
-out-specs.  It is not :func:`apply_moe`: its slots and drops are local.
+out-specs.  It is not :func:`apply_moe`: its slots and drops are local,
+from the reference's own masked cumsum (no kernel).
 """
 
 from __future__ import annotations
@@ -54,11 +57,13 @@ from typing import Any, NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as kref
 from repro_torch.obs.events import span
 
 from .config import ModelConfig
 from .hints import DTensor, pin, replicated_like, shard_map, unshard
-from .layers import init_linear, linear
+from .layers import _use_kernel, init_linear, linear
 
 Params = dict[str, Any]
 
@@ -133,12 +138,13 @@ def route(cfg: ModelConfig, p: Params, xf: torch.Tensor) -> Routing:
 
 def slots(cfg: ModelConfig, experts: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Choice (t, j) takes the next free slot of its expert: ``(slot, keep)``,
-    each ``[T·k]``, from the choices ``experts`` [T, k]."""
-    flat_e = experts.reshape(-1)  # [T·k], choice-major
-    onehot = F.one_hot(flat_e, cfg.moe.n_experts).to(torch.int32)  # [T·k, E]
-    pos = torch.cumsum(onehot, dim=0, dtype=torch.int32) - onehot  # prior same-expert choices
-    slot = torch.gather(pos, 1, flat_e[:, None])[:, 0].long()
-    return slot, slot < moe_capacity(cfg, experts.shape[0])
+    each ``[T·k]``, from the choices ``experts`` [T, k].  On the card the
+    ``moe_slots`` kernel; on the CPU, and on a DTensor (which no kernel
+    takes), the plain one-hot cumsum."""
+    cap = moe_capacity(cfg, experts.shape[0])
+    if not isinstance(experts, DTensor) and _use_kernel(experts):
+        return kops.moe_slots(experts, cfg.moe.n_experts, cap)
+    return kref.moe_slots_ref(experts, cfg.moe.n_experts, cap)
 
 
 def aux_loss(cfg: ModelConfig, r: Routing) -> torch.Tensor:

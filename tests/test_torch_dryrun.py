@@ -471,7 +471,8 @@ def test_phase_15_r_train_and_dry_cells_rehearsed(monkeypatch):
     for mod, name in ((krmsnorm, "rmsnorm"), (kflash, "flash_attention")):
         monkeypatch.setattr(mod, name, counted(mod, getattr(mod, name)))
     out = cs.r_train(torch, "cpu rehearsal", "H100 SXM", device="cpu")
-    assert out["launches"] == {"rmsnorm": 9, "flash_attention": 4, "decode_attention": 0, "mla_decode": 0}
+    assert out["launches"] == {"rmsnorm": 9, "flash_attention": 4, "decode_attention": 0, "mla_decode": 0,
+                               "moe_slots": 0}
     assert out["flops_plain"] == out["flops_dryrun"] > 0 and out["ratio"] >= cs.R_FLOOR
     _no_group_left()
 

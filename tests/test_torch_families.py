@@ -32,10 +32,12 @@ from repro_torch.configs import ARCHS
 from repro_torch.configs import get_config as tget
 from repro_torch.kernels import decode_attention as kdecode
 from repro_torch.kernels import flash_attention as kflash
+from repro_torch.kernels import moe_slots as kslots
 from repro_torch.kernels import rmsnorm as krmsnorm
 from repro_torch.models import Model as TModel
 from repro_torch.models import layers as tl
 from repro_torch.models import model as tmodel
+from repro_torch.models import moe as tmoe
 from repro_torch.models import params_from_jax
 
 TOL = 2e-5
@@ -274,7 +276,7 @@ def test_kernel_path_launches_as_chip_smoke_expects(arch, monkeypatch):
         counts.append({k: v - counts[-1][k] for k, v in calls.items()})
         return pre, dec
 
-    calls = {"rmsnorm": 0, "flash_attention": 0, "decode_attention": 0, "mla_decode": 0}
+    calls = {"rmsnorm": 0, "flash_attention": 0, "decode_attention": 0, "mla_decode": 0, "moe_slots": 0}
     counts = []
     with torch.no_grad():
         plain = run()
@@ -287,7 +289,9 @@ def test_kernel_path_launches_as_chip_smoke_expects(arch, monkeypatch):
             return call
 
         monkeypatch.setattr(tl, "_use_kernel", lambda x: True)
+        monkeypatch.setattr(tmoe, "_use_kernel", lambda x: True)
         monkeypatch.setattr(krmsnorm, "rmsnorm", counting("rmsnorm", krmsnorm.rmsnorm))
+        monkeypatch.setattr(kslots, "moe_slots", counting("moe_slots", kslots.moe_slots))
         monkeypatch.setattr(kflash, "flash_attention", counting("flash_attention", kflash.flash_attention))
         monkeypatch.setattr(kdecode, "decode_attention", counting("decode_attention", kdecode.decode_attention))
         counts.clear()

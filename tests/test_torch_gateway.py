@@ -979,7 +979,8 @@ def test_phase_18_rehearsed_on_the_cpu(monkeypatch):
 
     monkeypatch.setattr(krmsnorm, "rmsnorm", counted)
     out = cs.phase_gateway(torch, "cpu rehearsal", "H100 SXM", device="cpu", start_method="fork")
-    assert out["launches"] == {"rmsnorm": 2 * 40, "flash_attention": 0, "decode_attention": 0, "mla_decode": 0}
+    assert out["launches"] == {"rmsnorm": 2 * 40, "flash_attention": 0, "decode_attention": 0, "mla_decode": 0,
+                               "moe_slots": 0}
     assert out["over_quota"]["status"] == 429 and out["over_quota"]["retry_after"] >= 1
     assert out["counters"]["rejected"] == 1 and out["counters"]["instances_failed"] == 0
     assert out["requests_per_s"] > 0 and out["p50_ms"] <= out["p99_ms"]

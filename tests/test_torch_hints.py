@@ -38,12 +38,14 @@ from repro.models import MoECfg as JMoE
 from repro.models import hints as jhints
 from repro_torch._bridge import to_numpy, tree_leaves, tree_map, tree_unflatten
 from repro_torch.kernels import flash_attention as kflash
+from repro_torch.kernels import moe_slots as kslots
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import rmsnorm as krmsnorm
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.launch.sharding import batch_specs, distribute_params, param_specs
 from repro_torch.models import Model, ModelConfig, MoECfg, params_from_jax, params_to_jax
 from repro_torch.models import layers as tlayers
+from repro_torch.models import moe as tmoe
 from repro_torch.models.hints import ShardHints, get_hints, set_hints
 from test_torch_families import _chip_smoke
 
@@ -213,8 +215,8 @@ def test_phase_14_launches_rehearsed_on_the_kernel_path(monkeypatch):
     each D cell's arch at its smoke widths and depth, 2 × 16 tokens, and the
     kernel path patched in: each wrapper counts a call through its kernel
     module's own counter.  The phase's own checks run (it raises on a
-    failure): hinted and unhinted counts equal each other and
-    ``chip_smoke.dist_launches``, H1 is taken and H2 for granite, hinted
+    failure): hinted and unhinted counts equal ``chip_smoke.dist_launches``
+    of each mode (H2 takes no slot kernel), H1 is taken and H2 for granite, hinted
     equals unhinted, params and grads are placed as the specs, and the
     ZeRO-1 AdamW step equals the unsharded one."""
     import repro_torch.configs as tconfigs
@@ -233,14 +235,17 @@ def test_phase_14_launches_rehearsed_on_the_kernel_path(monkeypatch):
         return call
 
     monkeypatch.setattr(tlayers, "_use_kernel", lambda x: True)
-    for mod, name in ((krmsnorm, "rmsnorm"), (kflash, "flash_attention")):
+    monkeypatch.setattr(tmoe, "_use_kernel", lambda x: True)
+    for mod, name in ((krmsnorm, "rmsnorm"), (kflash, "flash_attention"), (kslots, "moe_slots")):
         monkeypatch.setattr(mod, name, counted(mod, getattr(mod, name)))
     out = cs.phase_distribution(torch, "cpu rehearsal", "H100 SXM", device="cpu")
     assert not dist.is_initialized()
     for cell, (arch, depth) in cs.DIST_CELLS.items():
         cfg = dataclasses.replace(real(arch, smoke=True), n_layers=depth, remat=True)
-        want = cs.dist_launches(cfg)
-        assert out[cell]["launches"] == {"unhinted": want, "hinted": want}, (cell, out[cell]["launches"])
+        want = cs.dist_launches(cfg, hinted=False)
+        assert out[cell]["launches"] == {"unhinted": want, "hinted": {**want, "moe_slots": 0}}, (
+            cell, out[cell]["launches"])
+        assert want["moe_slots"] == (2 * depth if cell == "D-granite" else 0)
         assert want["rmsnorm"] == 2 * (2 * depth + 1) - 1 and want["flash_attention"] == 2 * depth
         assert out[cell]["branches_hinted"]["H1"] == 2 * depth
         assert out[cell]["branches_hinted"]["H2"] == (2 * depth if cell == "D-granite" else 0)

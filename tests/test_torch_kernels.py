@@ -279,7 +279,8 @@ def test_rmsnorm_plan_limits():
 def test_launch_counts_untouched_by_plain_versions():
     ops.reset_launch_counts()
     rmsnorm(torch.ones(2, 64), torch.zeros(64))
-    assert ops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0, "decode_attention": 0, "mla_decode": 0}
+    assert ops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0, "decode_attention": 0, "mla_decode": 0,
+                                   "moe_slots": 0}
 
 
 def test_kernel_switch_on_cpu_tensor_raises():

@@ -245,7 +245,7 @@ def test_the_kernel_path_launches_one_mla_decode_a_layer_and_step(monkeypatch):
         for _ in range(2):
             _, cache = model.decode_step(params, torch.zeros((2, 1), dtype=torch.int32), cache)
     assert kops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0, "decode_attention": 0,
-                                    "mla_decode": 2 * cfg.n_layers}
+                                    "mla_decode": 2 * cfg.n_layers, "moe_slots": 0}
     kops.reset_launch_counts()
 
 
@@ -261,8 +261,10 @@ def test_the_kernel_path_launches_as_chip_smoke_expects(monkeypatch):
     from repro_torch.kernels import decode_attention as kdecode
     from repro_torch.kernels import flash_attention as kflash
     from repro_torch.kernels import mla_decode as kmla
+    from repro_torch.kernels import moe_slots as kslots
     from repro_torch.kernels import rmsnorm as krmsnorm
     from repro_torch.models import layers as mlayers
+    from repro_torch.models import moe as mmoe
 
     spec = importlib.util.spec_from_file_location("chip_smoke_for_tests",
                                                   Path(__file__).resolve().parents[1] / "chip_smoke.py")
@@ -272,7 +274,7 @@ def test_the_kernel_path_launches_as_chip_smoke_expects(monkeypatch):
     model = Model(cfg, "cpu")
     params = model.init(torch.Generator().manual_seed(0))
     toks = torch.randint(0, cfg.vocab, (2, 10), generator=torch.Generator().manual_seed(1), dtype=torch.int32)
-    calls = dict.fromkeys(("rmsnorm", "flash_attention", "decode_attention", "mla_decode"), 0)
+    calls = dict.fromkeys(("rmsnorm", "flash_attention", "decode_attention", "mla_decode", "moe_slots"), 0)
     counts = []
 
     def run():
@@ -292,10 +294,10 @@ def test_the_kernel_path_launches_as_chip_smoke_expects(monkeypatch):
     with torch.inference_mode():
         plain = run()
         counts.clear()
-        for mod in (mlayers, mla):
+        for mod in (mlayers, mla, mmoe):
             monkeypatch.setattr(mod, "_use_kernel", lambda x: True)
         for mod, name in ((krmsnorm, "rmsnorm"), (kflash, "flash_attention"), (kdecode, "decode_attention"),
-                          (kmla, "mla_decode")):
+                          (kmla, "mla_decode"), (kslots, "moe_slots")):
             monkeypatch.setattr(mod, name, counting(name, getattr(mod, name)))
         kern = run()
     assert tuple(counts) == smoke.serve_launches(cfg), (counts, smoke.serve_launches(cfg))

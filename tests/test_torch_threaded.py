@@ -504,10 +504,10 @@ def test_phase_16_rehearsed_on_the_cpu(monkeypatch):
 
     monkeypatch.setattr(krmsnorm, "rmsnorm", counted)
     out = cs.phase_threaded(torch, "cpu rehearsal", "H100 SXM", device="cpu")
-    three = {"rmsnorm": cs.DP_NORMS, "flash_attention": 0, "decode_attention": 0, "mla_decode": 0}
+    three = {"rmsnorm": cs.DP_NORMS, "flash_attention": 0, "decode_attention": 0, "mla_decode": 0, "moe_slots": 0}
     assert out["launches"] == {"P-ref": three, "P-ref/split": three, "P-full": three, "P-full/split": three,
                                "S-serve run_many": {"rmsnorm": 200, "flash_attention": 0, "decode_attention": 0,
-                                                    "mla_decode": 0}}
+                                                    "mla_decode": 0, "moe_slots": 0}}
     assert out["P-full/split"]["sends"] == cs.DP_STEPS - 1
     assert out["G"]["locations"] == 9 and out["G"]["resends"] >= 1
     assert out["S-serve"]["instances"] == 100

@@ -760,8 +760,10 @@ def test_launch_counters_add_under_their_locks():
     20,000 each, switching every microsecond, add 80,000."""
     from repro_torch.kernels import decode_attention as kdecode
     from repro_torch.kernels import mla_decode as kmla
+    from repro_torch.kernels import moe_slots as kslots
 
-    mods = {"rmsnorm": krmsnorm, "flash_attention": kflash, "decode_attention": kdecode, "mla_decode": kmla}
+    mods = {"rmsnorm": krmsnorm, "flash_attention": kflash, "decode_attention": kdecode, "mla_decode": kmla,
+            "moe_slots": kslots}
     for name, mod in mods.items():
         kops.reset_launch_counts()
         with mod._launch_lock:
