@@ -1132,7 +1132,7 @@ def phase_kernels(torch, bench: Bench) -> dict:
             "bound_by": by, "max_abs_err": max(errs[kernel].values()), "launch_floor_ms": tf,
         })
 
-    empty = rms_module._kernel("rmsnorm_empty_launch")
+    empty = rms_module.EMPTY.fn()
     for n, dm in RMS_SHAPES:
         x = randn(n, dm, dtype=bf)
         w = randn(dm, dtype=bf) * 0.1
@@ -1166,7 +1166,7 @@ def phase_kernels(torch, bench: Bench) -> dict:
     # The wrapper's host cost: 1000 calls enqueued on a synced card, over 1000;
     # beside it the same launch through ctypes alone, and the empty kernel's.
     y, args = rms_module.launch_args(x, w)
-    kern = rms_module._kernel()
+    kern = rms_module.LAUNCH.fn()
     host = {
         "wrapper": host_us(torch, lambda: rmsnorm(x, w)),
         "ctypes launch": host_us(torch, lambda: kern(*args)),
@@ -1535,8 +1535,8 @@ def path_launches(torch, kops, label: str, interpreted, fused_first) -> tuple[di
         results.append(run())
         torch.cuda.synchronize()
         counts[arm] = kops.launch_counts()
-        if counts[arm]["rmsnorm"] != want:
-            fail(f"{label}: {arm} launched rmsnorm {counts[arm]['rmsnorm']} times, not {want}")
+        if counts[arm].get("rmsnorm", 0) != want:
+            fail(f"{label}: {arm} launched rmsnorm {counts[arm].get('rmsnorm', 0)} times, not {want}")
     return counts, results
 
 
@@ -1584,9 +1584,9 @@ def phase_dataplane(torch, smi: str) -> dict:
             for arm, res in (("interpreted", res_i), ("fused", res_f)):
                 check_close(f"{label} {arm} d{k + 1} = rmsnorm(d{k})", res.data["l0"][f"d{k + 1}"],
                             want, 2e-5)
-        before = kops.launch_counts()["rmsnorm"]
+        before = kops.launch_counts().get("rmsnorm", 0)
         interp.run(initial_payloads=dict(feed))
-        per_run = kops.launch_counts()["rmsnorm"] - before
+        per_run = kops.launch_counts().get("rmsnorm", 0) - before
         if per_run != DP_NORMS:
             fail(f"{label}: an interpreted run launched rmsnorm {per_run} times, not {DP_NORMS}")
         f = res_f.stats["fused"]
@@ -2162,8 +2162,7 @@ def phase_train(torch, smi: str, sku: str) -> dict:
             fail(f"T-full: non-finite loss or grad_norm at iteration {it}: {m}")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     n = TRAIN_LAYERS
-    want = {"rmsnorm": TRAIN_PODS * ((2 * n + 1) + 2 * n),
-            "flash_attention": TRAIN_PODS * 2 * n, "decode_attention": 0, "mla_decode": 0, "moe_slots": 0}
+    want = {"rmsnorm": TRAIN_PODS * ((2 * n + 1) + 2 * n), "flash_attention": TRAIN_PODS * 2 * n}
     print(f"[9] launches in one iteration {counts} (expected {want})")
     if counts != want:
         fail("the training path did not launch each kernel as expected")
@@ -2200,7 +2199,7 @@ def phase_train(torch, smi: str, sku: str) -> dict:
         kops.reset_launch_counts()
         st.iteration(0)
         smoke_counts = kops.launch_counts()
-        if latest_step(d) != 1 or smoke_counts["rmsnorm"] == 0 or smoke_counts["flash_attention"] == 0:
+        if latest_step(d) != 1 or not smoke_counts.get("rmsnorm") or not smoke_counts.get("flash_attention"):
             fail(f"9b: no checkpoint at step 1 ({latest_step(d)}) or no kernel launched ({smoke_counts})")
         like = checkpoint_tree(scfg, st.params, st.opt_state)
         back = load_checkpoint(d, 1, like)
@@ -2392,10 +2391,15 @@ def serve_launches(cfg) -> tuple[dict, dict]:
     n_moe = sum(f == "moe" for _, f in kinds)
     if cfg.norm == "rmsnorm":
         norms += n_mla
-    return ({"rmsnorm": norms + enc_norms, "flash_attention": len(attn) + n_cross + n_enc + n_mla,
-             "decode_attention": 0, "mla_decode": 0, "moe_slots": n_moe},
-            {"rmsnorm": norms, "flash_attention": to_flash + n_cross, "decode_attention": len(attn) - to_flash,
-             "mla_decode": n_mla, "moe_slots": n_moe})
+    return (nonzero({"rmsnorm": norms + enc_norms, "flash_attention": len(attn) + n_cross + n_enc + n_mla,
+                     "moe_slots": n_moe}),
+            nonzero({"rmsnorm": norms, "flash_attention": to_flash + n_cross,
+                     "decode_attention": len(attn) - to_flash, "mla_decode": n_mla, "moe_slots": n_moe}))
+
+
+def nonzero(counts: dict) -> dict:
+    """``counts`` without its zeros, as ``ops.launch_counts`` reads them."""
+    return {k: n for k, n in counts.items() if n}
 
 
 def train_launches(cfg, pods: int) -> dict:
@@ -2404,9 +2408,10 @@ def train_launches(cfg, pods: int) -> dict:
     (:func:`serve_launches`), and remat's recompute of every block again, all
     but the final norm, which lies outside the blocks."""
     fwd, _ = serve_launches(cfg)
-    final = int(fwd["rmsnorm"] > 0)
-    return {"rmsnorm": pods * (2 * fwd["rmsnorm"] - final), "flash_attention": pods * 2 * fwd["flash_attention"],
-            "decode_attention": 0, "mla_decode": 0, "moe_slots": pods * 2 * fwd["moe_slots"]}
+    norms = fwd.get("rmsnorm", 0)
+    return nonzero({"rmsnorm": pods * (2 * norms - int(norms > 0)),
+                    "flash_attention": pods * 2 * fwd.get("flash_attention", 0),
+                    "moe_slots": pods * 2 * fwd.get("moe_slots", 0)})
 
 
 def serve_counted(torch, tag: str, cfg, smi: str, n_layers=None) -> tuple[dict, dict, float]:
@@ -2432,7 +2437,7 @@ def serve_counted(torch, tag: str, cfg, smi: str, n_layers=None) -> tuple[dict, 
         fail(f"{arch}: tokens out of range or shape: {toks.shape}, [{toks.min()}, {toks.max()}]")
     steps = GEN - 1
     per_prefill, per_step = serve_launches(cfg)
-    want = {k: per_prefill[k] + steps * per_step[k] for k in per_prefill}
+    want = {k: per_prefill.get(k, 0) + steps * per_step.get(k, 0) for k in {**per_prefill, **per_step}}
     print(f"[{tag}] {arch} launches in serve() {counts} (expected {want})")
     if counts != want:
         fail(f"{arch}: the serving path did not launch each kernel as expected")
@@ -2648,7 +2653,7 @@ def moe_train(torch, smi: str, sku: str) -> dict:
     first_ms = (time.perf_counter() - t0) * 1e3
     counts = kops.launch_counts()
     want = {"rmsnorm": TRAIN_PODS * ((2 * n + 1) + 2 * n), "flash_attention": TRAIN_PODS * 2 * n,
-            "decode_attention": 0, "mla_decode": 0, "moe_slots": TRAIN_PODS * 2 * n}
+            "moe_slots": TRAIN_PODS * 2 * n}
     print(f"[10] {MOE_TRAIN_ARCH} launches in one iteration {counts} (expected {want}); loss "
           f"{m['loss']:.6f}, ce {m['ce']:.6f}, aux {m['aux']:.6f}, grad norm {m['grad_norm']:.4f}")
     if counts != want:
@@ -3201,7 +3206,9 @@ def dist_launches(cfg, hinted: bool) -> dict:
     H2's expert-local dispatch takes its slots from the reference's own
     masked cumsum."""
     want = train_launches(cfg, 1)
-    return {**want, "moe_slots": 0} if hinted else want
+    if hinted:
+        want.pop("moe_slots", None)
+    return want
 
 
 def dist_fwdbwd(torch, model, params, batch) -> tuple:
@@ -3505,7 +3512,7 @@ def r_decode(torch, smi: str, sku: str) -> dict:
         torch.cuda.synchronize()
         launches = kops.launch_counts()
     n = len(cfg.layer_seq())
-    want = {"rmsnorm": 2 * n + 1, "flash_attention": 0, "decode_attention": n, "mla_decode": 0, "moe_slots": 0}
+    want = {"rmsnorm": 2 * n + 1, "decode_attention": n}
     print(f"[15] R-decode launches {launches} (expected {want})")
     if launches != want:
         fail("R-decode did not launch each kernel as expected")
@@ -3738,7 +3745,7 @@ def phase_threaded(torch, smi: str, sku: str, device: str = "cuda") -> dict:
             again = exe.run(initial_payloads=dict(feed))
             torch.cuda.synchronize()
             counts = kops.launch_counts()
-            if counts["rmsnorm"] != DP_NORMS or counts["flash_attention"] or counts["decode_attention"]:
+            if counts != {"rmsnorm": DP_NORMS}:
                 fail(f"{name}: a threaded run launched {counts}, not rmsnorm {DP_NORMS} alone")
             dp_stores_close(torch, f"{name} a counted run", again.data, res.data)
             cell["launches"] = out["launches"][name] = counts
@@ -3798,8 +3805,7 @@ def phase_threaded(torch, smi: str, sku: str, device: str = "cuda") -> dict:
     torch.cuda.synchronize()
     t_many = time.perf_counter() - t0
     counts = kops.launch_counts()
-    want = {"rmsnorm": 2 * SERVE_INSTANCES, "flash_attention": 0, "decode_attention": 0, "mla_decode": 0,
-            "moe_slots": 0}
+    want = {"rmsnorm": 2 * SERVE_INSTANCES}
     if counts != want:
         fail(f"S-serve run_many launched {counts}, not {want}")
     if len(many) != len(per):
@@ -3912,7 +3918,7 @@ def worker_report(kops, before: dict, t0: float) -> dict:
     just before and just after) and its span on the machine's monotonic
     clock (one clock for every process)."""
     after = kops.launch_counts()
-    return {"pid": os.getpid(), "launches": {k: after[k] - before[k] for k in after}, "t0": t0,
+    return {"pid": os.getpid(), "launches": nonzero({k: n - before.get(k, 0) for k, n in after.items()}), "t0": t0,
             "t1": time.monotonic()}
 
 
@@ -4060,8 +4066,10 @@ def mp_cell(torch, label: str, plan, fns, feed, device: str, smi: str, start_met
     t_t, res_t, t_r, res_r = dp_time_pair(torch, thr, ref_exe, feed)
     stores_equal(torch, f"{label} multiprocess vs threaded", res.data, res_t.data)
     on_device(torch, f"{label} multiprocess", res.data, device)
-    launches = {k: sum(r["launches"][k] for r in reports.values()) for k in ("rmsnorm", "flash_attention",
-                                                                             "decode_attention")}
+    launches = {}
+    for r in reports.values():
+        for k, n in r["launches"].items():
+            launches[k] = launches.get(k, 0) + n
     out = {"multiprocess_ms": walls, "fleet_start_ms": starts, "steps_ms": steps,
            "teardown_ms": [w - s - t for w, s, t in zip(walls, starts, steps)],
            "multiprocess_median_ms": statistics.median(walls), "fleet_start_median_ms": statistics.median(starts),
@@ -4073,7 +4081,7 @@ def mp_cell(torch, label: str, plan, fns, feed, device: str, smi: str, start_met
           f"{statistics.median(starts):.1f}, steps {statistics.median(steps):.1f}, teardown "
           f"{statistics.median(out['teardown_ms']):.1f}) on {res.stats['workers']} {start_method}ed workers; "
           f"threaded {statistics.median(t_t):.4f} ms, torch interpreted {statistics.median(t_r):.4f} ms (medians); "
-          f"stores equal to threaded's; rmsnorm launched {launches['rmsnorm']} times in the workers; {smi}")
+          f"stores equal to threaded's; rmsnorm launched {launches.get('rmsnorm', 0)} times in the workers; {smi}")
     return out, exe, res, reports
 
 
@@ -4124,7 +4132,7 @@ def phase_multiprocess(torch, smi: str, sku: str, device: str = "cuda", start_me
         for k in (0, 4, 8):  # the rmsnorm steps, against the plain version
             check_close(f"{name} multiprocess d{k + 1} = rmsnorm(d{k})", store[f"d{k + 1}"],
                         ref.rmsnorm_ref(store[f"d{k}"], torch.ones(shape[1], device=device)), 2e-5)
-        want = {"rmsnorm": DP_NORMS, "flash_attention": 0, "decode_attention": 0}
+        want = {"rmsnorm": DP_NORMS}
         if cell["launches"] != want:
             fail(f"{name}: the workers of a run launched {cell['launches']}, not {want}")
         cell["wire"] = wire_bytes(exe, res)
@@ -4331,8 +4339,7 @@ def phase_gateway(torch, smi: str, sku: str, device: str = "cuda", start_method:
         counts = kops.launch_counts()
         if errors or len(answers) != GW_REQUESTS:
             fail(f"gateway: {len(answers)} of {GW_REQUESTS} requests answered; errors {errors[:3]}")
-        want = {"rmsnorm": norms * GW_REQUESTS, "flash_attention": 0, "decode_attention": 0, "mla_decode": 0,
-                "moe_slots": 0}
+        want = {"rmsnorm": norms * GW_REQUESTS}
         if counts != want:
             fail(f"gateway: {GW_REQUESTS} requests launched {counts}, not {want}")
         for i in range(GW_REQUESTS):
@@ -4569,7 +4576,8 @@ def phase_mla(torch, smi: str, sku: str) -> dict:
 
     n = len(cfg.layer_seq())
     per_prefill, per_step = serve_launches(cfg)
-    if (per_prefill["mla_decode"], per_step["mla_decode"], per_step["decode_attention"]) != (0, n, 0):
+    if (per_prefill.get("mla_decode", 0), per_step.get("mla_decode", 0), per_step.get("decode_attention", 0)) != (
+            0, n, 0):
         fail(f"{MLA_ARCH}: serve_launches counts {per_prefill}, {per_step} for {n} MLA layers")
     print(f"[19] serve {MLA_ARCH} full width: {n} layers of MLA (latent {lat}, rope {rope}, {h} heads), "
           f"d {cfg.d_model}, vocab {cfg.vocab}, {cfg.dtype}")
@@ -4856,8 +4864,6 @@ def main() -> int:
         "rmsnorm": (2 * n_layers + 1) * (1 + steps),
         "flash_attention": n_layers,
         "decode_attention": n_layers * steps,
-        "mla_decode": 0,
-        "moe_slots": 0,
     }
     print(f"[4] launches {counts} (expected {want})")
     if counts != want:
@@ -4947,52 +4953,52 @@ def main() -> int:
         r = rows[k][0]  # the serving shape; "rows" has every timed shape
         record.append({
             "name": k, "route": "cuda", "source": src.format(k), "replaces": replaces[k],
-            "launches": counts[k], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "launches": counts.get(k, 0), "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "shape": r["shape"], "rows": rows[k],
             "launches_by_path": {
-                "serve": counts[k],
-                **{path: {arm: c[k] for arm, c in res["launches"].items()}
+                "serve": counts.get(k, 0),
+                **{path: {arm: c.get(k, 0) for arm, c in res["launches"].items()}
                    for path, res in (("dataplane", dataplane), ("traced", traced))},
-                "train": train["launches"][k],
-                **{f"serve {arch}": {path: c[k] for path, c in moe[arch]["launches"].items()}
+                "train": train["launches"].get(k, 0),
+                **{f"serve {arch}": {path: c.get(k, 0) for path, c in moe[arch]["launches"].items()}
                    for arch in MOE_ARCHS},
-                f"train {MOE_TRAIN_ARCH}": moe["train"]["launches"][k],
-                **{f"serve {arch}": {path: c[k] for path, c in recurrent[arch]["launches"].items()}
+                f"train {MOE_TRAIN_ARCH}": moe["train"]["launches"].get(k, 0),
+                **{f"serve {arch}": {path: c.get(k, 0) for path, c in recurrent[arch]["launches"].items()}
                    for arch in REC_ARCHS},
-                **{f"serve {arch}": {path: c[k] for path, c in families[arch]["launches"].items()}
+                **{f"serve {arch}": {path: c.get(k, 0) for path, c in families[arch]["launches"].items()}
                    for arch in FAMILY_ARCHS},
-                **{f"train {cell}": training[cell]["launches"][k] for cell in TRAIN_CELLS},
-                **{f"fwdbwd {cell}": {mode: c[k] for mode, c in distribution[cell]["launches"].items()}
+                **{f"train {cell}": training[cell]["launches"].get(k, 0) for cell in TRAIN_CELLS},
+                **{f"fwdbwd {cell}": {mode: c.get(k, 0) for mode, c in distribution[cell]["launches"].items()}
                    for cell in DIST_CELLS},
-                **{f"step {cell}": dryrun[cell]["launches"][k] for cell in ("R-decode", "R-train")},
-                **{f"threaded {path}": c[k] for path, c in threaded["launches"].items()},
-                **{f"multiprocess {path}": c[k] for path, c in multiprocess["launches"].items()},
-                "gateway": gateway["launches"][k],
-                f"serve {MLA_ARCH}": mla["launches"][k],
+                **{f"step {cell}": dryrun[cell]["launches"].get(k, 0) for cell in ("R-decode", "R-train")},
+                **{f"threaded {path}": c.get(k, 0) for path, c in threaded["launches"].items()},
+                **{f"multiprocess {path}": c.get(k, 0) for path, c in multiprocess["launches"].items()},
+                "gateway": gateway["launches"].get(k, 0),
+                f"serve {MLA_ARCH}": mla["launches"].get(k, 0),
             },
         })
     r = mla["row"]
     record.append({
         "name": "mla_decode", "route": "cuda", "source": src.format("mla_decode"), "replaces": None,
-        "launches": mla["launches"]["mla_decode"], "max_rel_l2": r["max_rel_l2"], "ms": r["ms"],
+        "launches": mla["launches"].get("mla_decode", 0), "max_rel_l2": r["max_rel_l2"], "ms": r["ms"],
         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
         "library_ms": r["library_ms"], "shape": r["shape"], "rows": [r],
         # Every other path's expected counts hold it at 0.
-        "launches_by_path": {f"serve {MLA_ARCH}": mla["launches"]["mla_decode"]},
+        "launches_by_path": {f"serve {MLA_ARCH}": mla["launches"].get("mla_decode", 0)},
     })
     r = slots["rows"][0]  # a decode step's call; "rows" has every cell's
     record.append({
         "name": "moe_slots", "route": "cuda", "source": src.format("moe_slots"), "replaces": None,
-        "launches": moe["deepseek-moe-16b"]["launches"]["serve"]["moe_slots"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"], "shape": r["shape"],
-        "rows": slots["rows"],
+        "launches": moe["deepseek-moe-16b"]["launches"]["serve"].get("moe_slots", 0), "ms": r["ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        "shape": r["shape"], "rows": slots["rows"],
         "launches_by_path": {
-            **{f"serve {arch}": {path: c["moe_slots"] for path, c in moe[arch]["launches"].items()}
+            **{f"serve {arch}": {path: c.get("moe_slots", 0) for path, c in moe[arch]["launches"].items()}
                for arch in MOE_ARCHS},
-            f"train {MOE_TRAIN_ARCH}": moe["train"]["launches"]["moe_slots"],
-            f"serve {MLA_ARCH}": mla["launches"]["moe_slots"],
-            **{f"fwdbwd {cell}": {mode: c["moe_slots"] for mode, c in distribution[cell]["launches"].items()}
+            f"train {MOE_TRAIN_ARCH}": moe["train"]["launches"].get("moe_slots", 0),
+            f"serve {MLA_ARCH}": mla["launches"].get("moe_slots", 0),
+            **{f"fwdbwd {cell}": {mode: c.get("moe_slots", 0) for mode, c in distribution[cell]["launches"].items()}
                for cell in DIST_CELLS},
         },
     })

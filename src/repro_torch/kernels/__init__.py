@@ -1,7 +1,10 @@
 """Hand-written CUDA kernels for Hopper (+ plain PyTorch versions in ref.py).
 
-``rmsnorm``, ``flash_attention``, ``decode_attention`` and ``mla_decode``
-each hold one kernel's wrapper and launch count; ``ops`` adapts them to the model's layout.
+``rmsnorm``, ``flash_attention``, ``decode_attention``, ``mla_decode`` and
+``moe_slots`` each hold one kernel's wrapper: its argument checks, its plan
+and its launch.  ``_build`` is their registry: it names the five once, builds
+and binds them, and counts their calls; ``ops`` holds the kernel-or-plain
+switch, adapts the wrappers to the model's layout and reads the counts.
 Each kernel is built from ``csrc/`` with ``nvcc`` at first use and loaded with
 ``ctypes``: importing this package builds nothing.
 """

@@ -8,6 +8,12 @@ library's file name carries a hash of its source, of every header in
 and a stale library is never loaded.  :func:`build` compiles several
 kernels in parallel, one ``nvcc`` process each.
 
+This module is also the kernels' registry: :data:`KERNELS` names each
+kernel once, an :class:`Entry` binds one entry point of a library and
+launches it, and :data:`launches` counts each kernel's calls under one lock
+(read through ``ops.launch_counts``).  :func:`stand_in` is what a kernel's
+wrapper does with a tensor off the card.
+
 Nothing here runs when the module is imported: the CPU tests import every
 module of the port on a machine without ``nvcc`` or a card.
 """
@@ -15,6 +21,7 @@ module of the port on a machine without ``nvcc`` or a card.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -38,6 +45,11 @@ NVCC_FLAGS = (
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _lock = threading.Lock()
+
+# Calls of each kernel since the last reset (what counts: ``ops``), under one
+# lock: the ``inprocess`` backend fires the trainer's pods on threads at once.
+launches = dict.fromkeys(KERNELS, 0)
+launch_lock = threading.Lock()
 
 
 class KernelError(RuntimeError):
@@ -130,8 +142,66 @@ def check(name: str, rc: int) -> None:
         raise KernelError(f"{name} kernel launch failed: CUDA error {rc} ({msg})")
 
 
+def count(name: str, n: int = 1) -> None:
+    with launch_lock:
+        launches[name] += n
+
+
+class Entry:
+    """One entry point of a kernel's library, bound with ``argtypes`` at its
+    first call (the library built and loaded first if need be)."""
+
+    def __init__(self, name: str, argtypes: list, symbol: str = ""):
+        self.name, self.symbol, self.argtypes = name, symbol or f"{name}_launch", argtypes
+        self._fn = None
+
+    def fn(self):
+        """The bare ctypes function, which returns the launch's CUDA error code."""
+        if self._fn is None:
+            lib = load(self.name)
+            with _lock:
+                if self._fn is None:
+                    fn = getattr(lib, self.symbol)
+                    fn.argtypes, fn.restype = self.argtypes, ctypes.c_int
+                    self._fn = fn
+        return self._fn
+
+    def __call__(self, device: torch.device, *args) -> None:
+        """Launch on ``device`` with ``args`` (the stream among them), raise
+        on an error, and count the call."""
+        fn = self._fn or self.fn()
+        if device.index == torch.cuda.current_device():
+            rc = fn(*args)
+        else:
+            with torch.cuda.device(device):
+                rc = fn(*args)
+        check(self.name, rc)
+        count(self.name)
+
+
+def stand_in(name: str, x: torch.Tensor, plain, *args, **kw):
+    """A kernel's call on a tensor ``x`` off the card: ``plain(*args, **kw)``
+    on a CPU tensor, counted as the kernel's call where the switch sends
+    ``x`` to a kernel (forced, as a CPU rehearsal of the card's counts does),
+    unless its output is empty; any other device raises."""
+    from . import ops  # the switch; ops imports this module
+
+    if x.device.type != "cpu":
+        raise ValueError(f"{name} runs on cpu or cuda tensors, got {x.device}")
+    forced = ops.use_kernel(x)
+    out = plain(*args, **kw)
+    if forced and (out[0] if isinstance(out, tuple) else out).numel():
+        count(name)
+    return out
+
+
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+@functools.cache
+def sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def scalar_arg(x, device: torch.device, what: str) -> tuple[int | None, int]:

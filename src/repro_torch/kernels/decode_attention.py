@@ -20,7 +20,6 @@ kernel or raises.
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
 
@@ -31,22 +30,16 @@ MAX_GROUP = 8  # query heads per KV head (csrc kMaxG)
 
 TILE = 64  # keys a tile of the kernel (csrc kTileK); a split is a multiple of it
 
-launches = 0  # kernel launches since the last reset (see ops.reset_launch_counts)
-_launch_lock = threading.Lock()
-
-
-def _count_launch() -> None:
-    """Add one to :data:`launches`, under a lock: two threads may launch at once
-    (the ``inprocess`` backend fires the trainer's pods on a thread pool)."""
-    global launches
-    with _launch_lock:
-        launches += 1
-
-
-_fn = None
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+LAUNCH = _build.Entry("decode_attention", (
+    [_P, _P, _P, _P, _P, _I]  # q, k, v, o, kv_len ptr/val
+    + [_I] * 5  # B, Hq, Hkv, Lk, d
+    + [_LL] * 10  # q (b, h), k (b, h, l), v (b, h, l), o (b, h)
+    + [_I, _P, _P]  # chunk, partials, counters
+    + [_I, _P]  # dtype, stream
+))
 # The merge's counters, zero between calls: one set per (device, stream).
 _counters: dict[tuple[torch.device, int], torch.Tensor] = {}
-_sms: dict[torch.device, int] = {}
 
 
 def split_chunk(lk: int, b: int, hkv: int, sms: int = 132) -> int:
@@ -62,23 +55,6 @@ def split_chunk(lk: int, b: int, hkv: int, sms: int = 132) -> int:
     return min(max(TILE, -(-per_block // TILE) * TILE), -(-lk // TILE) * TILE)
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = _build.load("decode_attention").decode_attention_launch
-        P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = (
-            [P, P, P, P, P, I]  # q, k, v, o, kv_len ptr/val
-            + [I] * 5  # B, Hq, Hkv, Lk, d
-            + [LL] * 10  # q (b, h), k (b, h, l), v (b, h, l), o (b, h)
-            + [I, P, P]  # chunk, partials, counters
-            + [I, P]  # dtype, stream
-        )
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
-
-
 def decode_attention(
     q: torch.Tensor,  # [B, Hq, d] — one new token per sequence
     k: torch.Tensor,  # [B, Hkv, Lk, d] — cache, possibly over-allocated
@@ -86,10 +62,8 @@ def decode_attention(
     kv_len,  # valid rows: int or device int32 scalar
 ) -> torch.Tensor:
     """Returns ``[B, Hq, d]`` laid out like ``q`` (``empty_like``)."""
-    if q.device.type == "cpu":
-        return ref.decode_attention_ref(q, k, v, kv_len)
     if q.device.type != "cuda":
-        raise ValueError(f"decode_attention runs on cpu or cuda tensors, got {q.device}")
+        return _build.stand_in("decode_attention", q, ref.decode_attention_ref, q, k, v, kv_len)
     b, hq, d = q.shape
     _, hkv, lk, _ = k.shape
     if q.dtype not in _build.DTYPE_CODE or not (q.dtype == k.dtype == v.dtype):
@@ -108,26 +82,21 @@ def decode_attention(
     if o.numel() == 0:
         return o
     dev = q.device
-    if dev not in _sms:
-        _sms[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
-    chunk = split_chunk(lk, b, hkv, _sms[dev])
+    chunk = split_chunk(lk, b, hkv, _build.sm_count(dev))
     splits = -(-lk // chunk)
     stream = _build.stream_of(q)
     part = torch.empty(b * hq * splits * (d + 2), dtype=torch.float32, device=dev)
     counters = _counters.get((dev, stream))
     if counters is None or counters.numel() < b * hkv:
         counters = _counters[dev, stream] = torch.zeros(b * hkv, dtype=torch.int32, device=dev)
-    with torch.cuda.device(q.device):
-        rc = _kernel()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), kv_ptr, kv_val,
-            b, hq, hkv, lk, d,
-            q.stride(0), q.stride(1),
-            k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2),
-            o.stride(0), o.stride(1),
-            chunk, part.data_ptr(), counters.data_ptr(),
-            _build.DTYPE_CODE[q.dtype], stream,
-        )
-    _build.check("decode_attention", rc)
-    _count_launch()
+    LAUNCH(
+        dev, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), kv_ptr, kv_val,
+        b, hq, hkv, lk, d,
+        q.stride(0), q.stride(1),
+        k.stride(0), k.stride(1), k.stride(2),
+        v.stride(0), v.stride(1), v.stride(2),
+        o.stride(0), o.stride(1),
+        chunk, part.data_ptr(), counters.data_ptr(),
+        _build.DTYPE_CODE[q.dtype], stream,
+    )
     return o

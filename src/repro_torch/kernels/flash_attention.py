@@ -17,7 +17,6 @@ strides must be multiples of 16 bytes.  A CPU tensor gets the plain version of
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
 
@@ -25,35 +24,13 @@ from . import _build, ref
 
 HEAD_DIMS = (64, 128, 192)
 
-launches = 0  # kernel launches since the last reset (see ops.reset_launch_counts)
-_launch_lock = threading.Lock()
-
-
-def _count_launch() -> None:
-    """Add one to :data:`launches`, under a lock: two threads may launch at once
-    (the ``inprocess`` backend fires the trainer's pods on a thread pool)."""
-    global launches
-    with _launch_lock:
-        launches += 1
-
-
-_fn = None
-
-
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = _build.load("flash_attention").flash_attention_launch
-        P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = (
-            [P, P, P, P, P, I, P, I]  # q, k, v, o, q_offset ptr/val, kv_len ptr/val
-            + [I] * 6  # B, Hq, Hkv, Lq, Lk, d
-            + [LL] * 12  # (b, h, l) strides of q, k, v, o
-            + [I, I, ctypes.c_float, I, P]  # causal, window, softcap, dtype, stream
-        )
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+_P, _I = ctypes.c_void_p, ctypes.c_int
+LAUNCH = _build.Entry("flash_attention", (
+    [_P, _P, _P, _P, _P, _I, _P, _I]  # q, k, v, o, q_offset ptr/val, kv_len ptr/val
+    + [_I] * 6  # B, Hq, Hkv, Lq, Lk, d
+    + [ctypes.c_longlong] * 12  # (b, h, l) strides of q, k, v, o
+    + [_I, _I, ctypes.c_float, _I, _P]  # causal, window, softcap, dtype, stream
+))
 
 
 def _bhl(t: torch.Tensor) -> list[int]:
@@ -72,13 +49,11 @@ def flash_attention(
     q_offset=0,  # absolute position of query row 0: int or device int32 scalar
 ) -> torch.Tensor:
     """Returns ``[B, Hq, Lq, d]`` laid out like ``q`` (``empty_like``)."""
-    if q.device.type == "cpu":
-        return ref.flash_attention_ref(
-            q, k, v, causal=causal, window=window, softcap=softcap,
-            kv_len=kv_len, q_offset=q_offset,
-        )
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention runs on cpu or cuda tensors, got {q.device}")
+        return _build.stand_in(
+            "flash_attention", q, ref.flash_attention_ref, q, k, v, causal=causal, window=window,
+            softcap=softcap, kv_len=kv_len, q_offset=q_offset,
+        )
     b, hq, lq, d = q.shape
     _, hkv, lk, _ = k.shape
     if q.dtype not in _build.DTYPE_CODE or not (q.dtype == k.dtype == v.dtype):
@@ -99,15 +74,12 @@ def flash_attention(
     o = torch.empty_like(q)
     if o.numel() == 0:
         return o
-    with torch.cuda.device(q.device):
-        rc = _kernel()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            off_ptr, off_val, kv_ptr, kv_val,
-            b, hq, hkv, lq, lk, d,
-            *_bhl(q), *_bhl(k), *_bhl(v), *_bhl(o),
-            int(causal), int(window), float(softcap),
-            _build.DTYPE_CODE[q.dtype], _build.stream_of(q),
-        )
-    _build.check("flash_attention", rc)
-    _count_launch()
+    LAUNCH(
+        q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        off_ptr, off_val, kv_ptr, kv_val,
+        b, hq, hkv, lq, lk, d,
+        *_bhl(q), *_bhl(k), *_bhl(v), *_bhl(o),
+        int(causal), int(window), float(softcap),
+        _build.DTYPE_CODE[q.dtype], _build.stream_of(q),
+    )
     return o

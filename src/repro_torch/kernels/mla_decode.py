@@ -22,7 +22,6 @@ the plain version of ``ref.py``; a CUDA tensor launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
 
@@ -32,19 +31,13 @@ LATENT, ROPE = 512, 64  # csrc kLat, kRope
 MAX_HEADS = 16  # csrc kHeads: the M of one mma tile
 TILE = 32  # keys a tile of the split kernel (csrc kTileK); a split is a multiple of it
 
-launches = 0  # calls since the last reset (see ops.reset_launch_counts); each is a split and a merge launch
-_launch_lock = threading.Lock()
-
-
-def _count_launch() -> None:
-    """Add one to :data:`launches`, under a lock (see ``decode_attention``)."""
-    global launches
-    with _launch_lock:
-        launches += 1
-
-
-_fn = None
-_sms: dict[torch.device, int] = {}
+_P, _I = ctypes.c_void_p, ctypes.c_int
+LAUNCH = _build.Entry("mla_decode", (  # a call: a split and a merge launch, counted once
+    [_P, _P, _P, _P, _P, _P, _I]  # q_lat, q_pe, c_kv, k_pe, o, kv_len ptr/val
+    + [_I] * 3  # B, H, Lk
+    + [ctypes.c_longlong] * 10  # q_lat (b, h), q_pe (b, h), c_kv (b, l), k_pe (b, l), o (b, h)
+    + [ctypes.c_float, _I, _P, _P]  # scale, chunk, partials, stream
+))
 
 
 def split_chunk(lk: int, b: int, sms: int = 132) -> int:
@@ -57,22 +50,6 @@ def split_chunk(lk: int, b: int, sms: int = 132) -> int:
     return min(max(TILE, -(-per_block // TILE) * TILE), -(-lk // TILE) * TILE)
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = _build.load("mla_decode").mla_decode_launch
-        P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = (
-            [P, P, P, P, P, P, I]  # q_lat, q_pe, c_kv, k_pe, o, kv_len ptr/val
-            + [I] * 3  # B, H, Lk
-            + [LL] * 10  # q_lat (b, h), q_pe (b, h), c_kv (b, l), k_pe (b, l), o (b, h)
-            + [ctypes.c_float, I, P, P]  # scale, chunk, partials, stream
-        )
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
-
-
 def mla_decode(
     q_lat: torch.Tensor,  # [B, H, 512]
     q_pe: torch.Tensor,  # [B, H, 64]
@@ -82,10 +59,8 @@ def mla_decode(
     scale: float,
 ) -> torch.Tensor:
     """Returns ``[B, H, 512]`` in ``q_lat``'s dtype (contiguous)."""
-    if q_lat.device.type == "cpu":
-        return ref.mla_decode_ref(q_lat, q_pe, c_kv, k_pe, kv_len, scale)
     if q_lat.device.type != "cuda":
-        raise ValueError(f"mla_decode runs on cpu or cuda tensors, got {q_lat.device}")
+        return _build.stand_in("mla_decode", q_lat, ref.mla_decode_ref, q_lat, q_pe, c_kv, k_pe, kv_len, scale)
     b, h, c = q_lat.shape
     lk = c_kv.shape[1]
     ts = (q_lat, q_pe, c_kv, k_pe)
@@ -108,19 +83,14 @@ def mla_decode(
     if b == 0:
         return o
     dev = q_lat.device
-    if dev not in _sms:
-        _sms[dev] = torch.cuda.get_device_properties(dev).multi_processor_count
-    chunk = split_chunk(lk, b, _sms[dev])
+    chunk = split_chunk(lk, b, _build.sm_count(dev))
     splits = -(-lk // chunk)
     part = torch.empty(b * splits * h * (c + 2), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        rc = _kernel()(
-            q_lat.data_ptr(), q_pe.data_ptr(), c_kv.data_ptr(), k_pe.data_ptr(), o.data_ptr(), kv_ptr, kv_val,
-            b, h, lk,
-            q_lat.stride(0), q_lat.stride(1), q_pe.stride(0), q_pe.stride(1),
-            c_kv.stride(0), c_kv.stride(1), k_pe.stride(0), k_pe.stride(1), o.stride(0), o.stride(1),
-            float(scale), chunk, part.data_ptr(), _build.stream_of(q_lat),
-        )
-    _build.check("mla_decode", rc)
-    _count_launch()
+    LAUNCH(
+        dev, q_lat.data_ptr(), q_pe.data_ptr(), c_kv.data_ptr(), k_pe.data_ptr(), o.data_ptr(), kv_ptr, kv_val,
+        b, h, lk,
+        q_lat.stride(0), q_lat.stride(1), q_pe.stride(0), q_pe.stride(1),
+        c_kv.stride(0), c_kv.stride(1), k_pe.stride(0), k_pe.stride(1), o.stride(0), o.stride(1),
+        float(scale), chunk, part.data_ptr(), _build.stream_of(q_lat),
+    )
     return o

@@ -19,7 +19,6 @@ of ``ref.py``; a CUDA tensor launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
 
@@ -29,18 +28,9 @@ CHUNK = 4096  # choices a block takes (csrc kChunk): 256 threads of 16
 MAX_EXPERTS = 256  # csrc kMaxExperts: one scanning thread an expert
 MAX_CHOICES = 1 << 30  # csrc kMaxChoices: the kernel counts in int32
 
-launches = 0  # calls since the last reset (see ops.reset_launch_counts); each is one or two launches (plan)
-_launch_lock = threading.Lock()
-
-
-def _count_launch() -> None:
-    """Add one to :data:`launches`, under a lock (see ``decode_attention``)."""
-    global launches
-    with _launch_lock:
-        launches += 1
-
-
-_fn = None
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# experts, row stride, k, n, E, C, slot, keep, counts, stream; a call is one or two launches (plan), counted once
+LAUNCH = _build.Entry("moe_slots", [_P, _LL, _I, _I, _I, _LL, _P, _P, _P, _P])
 
 
 def plan(n: int) -> tuple[int, int]:
@@ -51,25 +41,12 @@ def plan(n: int) -> tuple[int, int]:
     return chunks, 1 if chunks <= 1 else 2
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = _build.load("moe_slots").moe_slots_launch
-        P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [P, LL, I, I, I, LL, P, P, P, P]  # experts, row stride, k, n, E, C, slot, keep, counts, stream
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
-
-
 def moe_slots(experts: torch.Tensor, n_experts: int, capacity: int) -> tuple[torch.Tensor, torch.Tensor]:
     """``experts`` [T, k] int64 → ``(slot [T·k] int64, keep [T·k] bool)``:
     choice ``t·k + j`` takes the next free slot of its expert, and is kept
     below ``capacity``."""
-    if experts.device.type == "cpu":
-        return ref.moe_slots_ref(experts, n_experts, capacity)
     if experts.device.type != "cuda":
-        raise ValueError(f"moe_slots runs on cpu or cuda tensors, got {experts.device}")
+        return _build.stand_in("moe_slots", experts, ref.moe_slots_ref, experts, n_experts, capacity)
     if experts.dtype != torch.int64 or experts.dim() != 2:
         raise TypeError(f"moe_slots takes [T, k] int64 expert ids, got {experts.dtype} {tuple(experts.shape)}")
     if not 0 < n_experts <= MAX_EXPERTS:
@@ -87,11 +64,8 @@ def moe_slots(experts: torch.Tensor, n_experts: int, capacity: int) -> tuple[tor
         experts = experts.contiguous()
     chunks, _ = plan(n)
     counts = torch.empty((chunks - 1) * n_experts, dtype=torch.int32, device=dev) if chunks > 1 else None
-    with torch.cuda.device(dev):
-        rc = _kernel()(
-            experts.data_ptr(), experts.stride(0), k, n, n_experts, capacity, slot.data_ptr(), keep.data_ptr(),
-            None if counts is None else counts.data_ptr(), _build.stream_of(experts),
-        )
-    _build.check("moe_slots", rc)
-    _count_launch()
+    LAUNCH(
+        dev, experts.data_ptr(), experts.stride(0), k, n, n_experts, capacity, slot.data_ptr(), keep.data_ptr(),
+        None if counts is None else counts.data_ptr(), _build.stream_of(experts),
+    )
     return slot, keep

@@ -1,12 +1,25 @@
-"""Model-layout wrappers around the five kernels, and their launch counts.
+"""The kernel-or-plain switch, model-layout wrappers around the five kernels,
+and their launch counts.
+
+The switch.  :func:`set_attn_impl` (the reference's ``set_attn_impl``, which
+``models.layers`` re-exports) holds ``"kernel"``, ``"plain"`` or ``None``,
+and :func:`use_kernel` answers for a tensor: ``None`` picks by device (CUDA
+takes the kernels), ``"plain"`` never takes them, and ``"kernel"`` always,
+raising on a CPU tensor.  The model asks it before each call of a wrapper
+here; a test that rehearses the card's path on the CPU patches it alone.
 
 The model keeps activations as ``[B, L, H, d]`` and its cache as
 ``[B, M, Hkv, d]``.  Where ``repro.kernels.ops`` transposes q/k/v (and the
 whole cache, every decode step) into the kernels' ``[B, H, L, d]``, these
 wrappers pass transposed *views*: the kernels take strides, so nothing is
-copied.  Each kernel module counts its own launches in an integer that
-it adds to under a lock, as the ``inprocess`` backend fires the trainer's
-pods on threads that launch at once; :func:`launch_counts` reads the five,
+copied.
+
+Counts.  :func:`launch_counts` reads one count per kernel from
+``_build.launches``: each call of a kernel's wrapper that launches on the
+card (a call of ``mla_decode`` or ``moe_slots``, which launch one or two
+kernels a call, counts once) and, on the CPU, each call whose plain
+stand-in runs because the switch is forced to the kernel path; a call on
+empty inputs, which launches nothing, is not counted.
 :func:`reset_launch_counts` zeroes them, and :func:`add_launch_counts` adds
 to them for launches that no wrapper call made (a CUDA graph's replay).
 
@@ -37,8 +50,31 @@ from . import moe_slots as _slots
 from . import ref
 from . import rmsnorm as _rmsnorm
 
-_MODULES = {"rmsnorm": _rmsnorm, "flash_attention": _flash, "decode_attention": _decode, "mla_decode": _mla,
-            "moe_slots": _slots}
+_IMPLS = (None, "plain", "kernel")
+_impl: str | None = None
+
+
+def set_attn_impl(impl: str | None) -> None:
+    """``"kernel"``, ``"plain"``, or ``None`` (by device: CUDA → kernel)."""
+    global _impl
+    if impl not in _IMPLS:
+        raise ValueError(f"attention impl must be one of {_IMPLS}, got {impl!r}")
+    _impl = impl
+
+
+def get_attn_impl() -> str | None:
+    return _impl
+
+
+def use_kernel(x: torch.Tensor) -> bool:
+    """Whether work on ``x`` goes to a kernel under the current switch."""
+    if _impl == "plain":
+        return False
+    if _impl == "kernel":
+        if not x.is_cuda:
+            raise RuntimeError(f"attention impl 'kernel' needs CUDA tensors, got one on {x.device}")
+        return True
+    return x.is_cuda
 
 
 class KernelWithPlainGrad(torch.autograd.Function):
@@ -139,19 +175,18 @@ def build() -> dict[str, float]:
 
 
 def launch_counts() -> dict[str, int]:
-    return {name: mod.launches for name, mod in _MODULES.items()}
+    """The counts since the last reset, of the kernels counted at all."""
+    with _build.launch_lock:
+        return {name: n for name, n in _build.launches.items() if n}
 
 
 def reset_launch_counts() -> None:
-    for mod in _MODULES.values():
-        with mod._launch_lock:
-            mod.launches = 0
+    with _build.launch_lock:
+        _build.launches.update(dict.fromkeys(_build.KERNELS, 0))
 
 
 def add_launch_counts(counts: dict[str, int]) -> None:
     """Add ``counts`` (by kernel, negative allowed) to the launch counts: a
     CUDA graph's capture counts launches that run only at its replays."""
     for name, n in counts.items():
-        mod = _MODULES[name]
-        with mod._launch_lock:
-            mod.launches += n
+        _build.count(name, n)

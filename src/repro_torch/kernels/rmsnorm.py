@@ -4,14 +4,15 @@ Replaces ``repro/kernels/rmsnorm.py`` (Pallas, TPU).  The kernel holds each
 row in registers and reads it once; :func:`plan` maps rows to threads by
 width, so the grid covers the rows exactly and nothing is padded.  On a CPU
 tensor the wrapper returns the plain version of ``ref.py``; on a CUDA tensor
-it launches the kernel or raises.
+it launches the kernel or raises.  :data:`EMPTY` is the library's
+``rmsnorm_empty_launch``: the same arguments and checks, launching an empty
+kernel on the same grid.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import threading
 from typing import NamedTuple
 
 import torch
@@ -22,19 +23,10 @@ VALUES = 32  # most values of a row one thread holds (csrc kMaxValues)
 MAX_THREADS = 256  # threads of a block (csrc kMaxThreads)
 MAX_D = VALUES * MAX_THREADS
 
-launches = 0  # kernel launches since the last reset (see ops.reset_launch_counts)
-_launch_lock = threading.Lock()
-
-
-def _count_launch() -> None:
-    """Add one to :data:`launches`, under a lock: two threads may launch at once
-    (the ``inprocess`` backend fires the trainer's pods on a thread pool)."""
-    global launches
-    with _launch_lock:
-        launches += 1
-
-
-_fns: dict = {}
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_ARGS = [_P, _P, _P, _LL, _I, _LL, _LL, ctypes.c_float, _I, _I, _I, _I, _I, _P]
+LAUNCH = _build.Entry("rmsnorm", _ARGS)
+EMPTY = _build.Entry("rmsnorm", _ARGS, "rmsnorm_empty_launch")
 
 
 class Plan(NamedTuple):
@@ -74,19 +66,6 @@ def plan(d: int, dtype: torch.dtype, addr_bits: int = 0) -> Plan:
     warp a row and four rows a block, a wider row a group of warps.
     """
     return _plan(d, dtype.itemsize, addr_bits & 15 == 0)
-
-
-def _kernel(name: str = "rmsnorm_launch"):
-    """The library's launcher, or ``rmsnorm_empty_launch``: the same
-    arguments and checks, launching an empty kernel on the same grid."""
-    fn = _fns.get(name)
-    if fn is None:
-        fn = getattr(_build.load("rmsnorm"), name)
-        P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [P, P, P, LL, I, LL, LL, ctypes.c_float, I, I, I, I, I, P]
-        fn.restype = I
-        _fns[name] = fn
-    return fn
 
 
 def launch_args(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6, out=None):
@@ -141,18 +120,10 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, *, eps: float = 1e-6, out=None) ->
     ``out``, if given, is written and returned: x's shape and dtype, unit
     stride along d, any row stride, not overlapping x.
     """
-    if x.device.type == "cpu":
-        y = ref.rmsnorm_ref(x, w, eps=eps)
+    if x.device.type != "cuda":
+        y = _build.stand_in("rmsnorm", x, ref.rmsnorm_ref, x, w, eps=eps)
         return y if out is None else out.copy_(y)
     y, args = launch_args(x, w, eps, out)
-    if args is None:
-        return y
-    index = x.device.index
-    if index == torch.cuda.current_device():
-        rc = _kernel()(*args)
-    else:
-        with torch.cuda.device(index):
-            rc = _kernel()(*args)
-    _build.check("rmsnorm", rc)
-    _count_launch()
+    if args is not None:
+        LAUNCH(x.device, *args)
     return y

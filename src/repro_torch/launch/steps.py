@@ -36,7 +36,6 @@ from repro_torch.configs.shapes import Shape
 from repro_torch.kernels import ops as kops
 from repro_torch.models import Model, ModelConfig
 from repro_torch.models.hints import get_hints, unshard
-from repro_torch.models.layers import get_attn_impl
 from repro_torch.obs.events import span, step_span
 from repro_torch.optim import AdamWConfig, AdamWState
 from repro_torch.optim import adamw
@@ -174,7 +173,7 @@ class _DecodeGraph:
 
 
 def _context(token: torch.Tensor) -> tuple:
-    return (tuple(token.shape), token.dtype, token.device, torch.is_inference_mode_enabled(), get_attn_impl())
+    return (tuple(token.shape), token.dtype, token.device, torch.is_inference_mode_enabled(), kops.get_attn_impl())
 
 
 class ServeStep:
@@ -264,7 +263,7 @@ class ServeStep:
             finally:
                 graph.capture_end()  # the stream leaves capture, after an error too
         # The capture launched nothing; each replay launches what it counted.
-        launches = {k: n - before[k] for k, n in kops.launch_counts().items() if n != before[k]}
+        launches = {k: n - before.get(k, 0) for k, n in kops.launch_counts().items() if n != before.get(k, 0)}
         kops.add_launch_counts({k: -n for k, n in launches.items()})
         cur.wait_stream(side)
         out[0].record_stream(cur)

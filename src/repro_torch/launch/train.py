@@ -217,7 +217,9 @@ class Trainer:
         return fns
 
     def iteration(self, it: int) -> dict:
-        """Run iteration ``it`` of the plan; returns pod 0's metrics."""
+        """Run iteration ``it`` of the plan; returns pod 0's state's metrics:
+        its update's, and the fwdbwd metrics (``loss``, ``ce``) of the last
+        pod, which ``gradsync`` keeps, as the reference's does."""
         payloads = {}
         for i in range(self.n_pods):
             payloads[(f"pod{i}", f"iter_{i}")] = it

@@ -2,7 +2,9 @@
 
 The port of ``repro.models.layers``.  Two implementations sit behind one
 switch, :func:`set_attn_impl` (the reference's ``set_attn_impl``, with the
-values ``"plain"`` and ``"kernel"``):
+values ``"plain"`` and ``"kernel"``), which lives in
+:mod:`repro_torch.kernels.ops` beside ``use_kernel``, its answer for a
+tensor, which every layer of the model asks (``moe`` and ``mla`` too):
 
 * ``"kernel"``: ``rms_norm`` launches the rmsnorm kernel; attention without
   a cache, or with a cache and ``L > 1`` (prefill), launches the flash kernel
@@ -56,33 +58,7 @@ from .hints import DTensor, constrain, get_hints, matmul, pin, placements, repli
 
 Params = dict[str, Any]
 
-_IMPLS = (None, "plain", "kernel")
-_ATTN_IMPL: Optional[str] = None
-
-
-def set_attn_impl(impl: Optional[str]) -> None:
-    """``"kernel"``, ``"plain"``, or ``None`` (by device: CUDA → kernel)."""
-    global _ATTN_IMPL
-    if impl not in _IMPLS:
-        raise ValueError(f"attention impl must be one of {_IMPLS}, got {impl!r}")
-    _ATTN_IMPL = impl
-
-
-def get_attn_impl() -> Optional[str]:
-    return _ATTN_IMPL
-
-
-def _use_kernel(x: torch.Tensor) -> bool:
-    """Whether work on ``x`` goes to a kernel under the current switch."""
-    if _ATTN_IMPL == "plain":
-        return False
-    if _ATTN_IMPL == "kernel":
-        if not x.is_cuda:
-            raise RuntimeError(
-                f"attention impl 'kernel' needs CUDA tensors, got one on {x.device}"
-            )
-        return True
-    return x.is_cuda
+set_attn_impl, get_attn_impl = kops.set_attn_impl, kops.get_attn_impl
 
 
 # ---------------------------------------------------------------------------
@@ -93,7 +69,7 @@ def _use_kernel(x: torch.Tensor) -> bool:
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     if isinstance(x, DTensor):
         return _rms_norm_on_shards(x, w, eps)
-    if _use_kernel(x):
+    if kops.use_kernel(x):
         return kops.rmsnorm(x, w, eps=eps)
     return kref.rmsnorm_ref(x, w, eps=eps)
 
@@ -280,7 +256,7 @@ def sdpa(
     if isinstance(q, DTensor):
         return _sdpa_on_batch_shards(q, k, v, causal=causal, window=window, softcap=softcap, q_offset=q_offset,
                                      kv_valid=kv_valid, q_chunk=q_chunk, stride_chunks=stride_chunks)
-    if _use_kernel(q):
+    if kops.use_kernel(q):
         return kops.flash_attention(
             q, k, v, causal=causal, window=window, softcap=softcap,
             q_offset=q_offset, kv_len=kv_valid,
@@ -448,7 +424,7 @@ def attention_block(
         rows = idx + torch.arange(l, device=x.device)
         ck, cv = _cache_write(cache["k"], rows, k), _cache_write(cache["v"], rows, v)
         valid = idx + l
-        if l == 1 and window == 0 and softcap == 0.0 and _use_kernel(q):
+        if l == 1 and window == 0 and softcap == 0.0 and kops.use_kernel(q):
             # One row at q_offset = len: causal-at-len and kv_valid = len + 1
             # are the same mask, s < len + 1.
             out = kops.decode_attention(q, ck, cv, valid)

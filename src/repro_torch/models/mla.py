@@ -49,7 +49,7 @@ from repro_torch.kernels import ref as kref
 from repro_torch.obs.events import span
 
 from .config import MLACfg, ModelConfig
-from .layers import _cache_write, _use_kernel, apply_rope, init_linear, linear, rms_norm, sdpa
+from .layers import _cache_write, apply_rope, init_linear, linear, rms_norm, sdpa
 
 Params = dict[str, Any]
 
@@ -150,7 +150,7 @@ def _absorbed(cfg: ModelConfig, p: Params, q_nope: torch.Tensor, q_pe: torch.Ten
     # q_lat[b, h] = q_nope[b, h] · W_UK[h]ᵀ, W_UK[h] = w[:, h, :n]: [H, B, n] @ [H, n, c]
     q_lat = torch.bmm(q_nope.transpose(0, 1), w[..., :n].permute(1, 2, 0)).transpose(0, 1)
     scale = softmax_scale(cfg)
-    if _use_kernel(q_lat):  # bf16 only: other dtypes raise
+    if kops.use_kernel(q_lat):  # bf16 only: other dtypes raise
         o_lat = kops.mla_decode(q_lat, q_pe, c_kv, k_pe, kv_len, scale)
     else:
         o_lat = kref.mla_decode_ref(q_lat, q_pe, c_kv, k_pe, kv_len, scale)

@@ -63,7 +63,7 @@ from repro_torch.obs.events import span
 
 from .config import ModelConfig
 from .hints import DTensor, pin, replicated_like, shard_map, unshard
-from .layers import _use_kernel, init_linear, linear
+from .layers import init_linear, linear
 
 Params = dict[str, Any]
 
@@ -142,7 +142,7 @@ def slots(cfg: ModelConfig, experts: torch.Tensor) -> tuple[torch.Tensor, torch.
     ``moe_slots`` kernel; on the CPU, and on a DTensor (which no kernel
     takes), the plain one-hot cumsum."""
     cap = moe_capacity(cfg, experts.shape[0])
-    if not isinstance(experts, DTensor) and _use_kernel(experts):
+    if not isinstance(experts, DTensor) and kops.use_kernel(experts):
         return kops.moe_slots(experts, cfg.moe.n_experts, cap)
     return kref.moe_slots_ref(experts, cfg.moe.n_experts, cap)
 

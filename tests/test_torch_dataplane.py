@@ -177,7 +177,7 @@ def test_pipeline_matches_jax(fuse, jax_pipeline_results, torch_pipeline_plan):
     tres = exe.run(initial_payloads={("l0", "d0"): pipeline_input()})
     assert_stores_close(tres.data, jres.data)
     assert counts(tres.stats) == counts(jres.stats)
-    assert tops.launch_counts()["rmsnorm"] == 0  # CPU tensors take the plain version
+    assert tops.launch_counts() == {}  # CPU tensors take the plain version
     if fuse:
         f = tres.stats["fused"]
         assert (f["segments_planned"], f["fused_calls"], f["fused_execs"], f["fallbacks"]) == (

@@ -437,8 +437,8 @@ def test_xlstm_loss_and_grads_on_dtensors_equal_plain_tensors(mesh11):
 
 def test_phase_15_r_train_and_dry_cells_rehearsed(monkeypatch):
     """``chip_smoke.r_train`` on the CPU at llama's smoke widths (bf16, remat,
-    2 × 16 tokens) with the kernel path patched in (each wrapper counts a
-    call through its module's counter; ``_use_kernel`` follows the switch, so
+    2 × 16 tokens) with the switch forced to the kernel path unless it is
+    ``"plain"`` (each wrapper's plain stand-in counts as the card's launch;
     the plain count takes the plain path): its launches equal
     ``train_launches``, it measures above its bound, and the plain path's
     FLOPs equal the 1 × 1 meta dry-run's (the phase raises otherwise).  Then
@@ -446,9 +446,7 @@ def test_phase_15_r_train_and_dry_cells_rehearsed(monkeypatch):
     import functools
 
     import repro_torch.configs as tconfigs
-    from repro_torch.kernels import flash_attention as kflash
-    from repro_torch.kernels import rmsnorm as krmsnorm
-    from repro_torch.models import layers as tlayers
+    from repro_torch.kernels import ops as kops
     from test_torch_families import _chip_smoke
 
     cs = _chip_smoke()
@@ -460,19 +458,9 @@ def test_phase_15_r_train_and_dry_cells_rehearsed(monkeypatch):
     monkeypatch.setattr(cs, "R_SEQ", 16)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
 
-    def counted(mod, fn):
-        def call(*a, **k):
-            out = fn(*a, **k)
-            mod._count_launch()
-            return out
-        return call
-
-    monkeypatch.setattr(tlayers, "_use_kernel", lambda x: tlayers.get_attn_impl() != "plain")
-    for mod, name in ((krmsnorm, "rmsnorm"), (kflash, "flash_attention")):
-        monkeypatch.setattr(mod, name, counted(mod, getattr(mod, name)))
+    monkeypatch.setattr(kops, "use_kernel", lambda x: kops.get_attn_impl() != "plain")
     out = cs.r_train(torch, "cpu rehearsal", "H100 SXM", device="cpu")
-    assert out["launches"] == {"rmsnorm": 9, "flash_attention": 4, "decode_attention": 0, "mla_decode": 0,
-                               "moe_slots": 0}
+    assert out["launches"] == {"rmsnorm": 9, "flash_attention": 4}
     assert out["flops_plain"] == out["flops_dryrun"] > 0 and out["ratio"] >= cs.R_FLOOR
     _no_group_left()
 

@@ -30,14 +30,10 @@ from repro.models import model as jmodel
 from repro_torch._bridge import to_torch, tree_map
 from repro_torch.configs import ARCHS
 from repro_torch.configs import get_config as tget
-from repro_torch.kernels import decode_attention as kdecode
-from repro_torch.kernels import flash_attention as kflash
-from repro_torch.kernels import moe_slots as kslots
-from repro_torch.kernels import rmsnorm as krmsnorm
+from repro_torch.kernels import ops as kops
 from repro_torch.models import Model as TModel
 from repro_torch.models import layers as tl
 from repro_torch.models import model as tmodel
-from repro_torch.models import moe as tmoe
 from repro_torch.models import params_from_jax
 
 TOL = 2e-5
@@ -270,30 +266,19 @@ def test_kernel_path_launches_as_chip_smoke_expects(arch, monkeypatch):
 
     def run():
         cache = tm.init_cache(2, m)
+        kops.reset_launch_counts()
         pre, cache = tm.prefill(tp, toks[:, :n], cache, **fe)
-        counts.append(dict(calls))
+        counts.append(kops.launch_counts())
+        kops.reset_launch_counts()
         dec, _ = tm.decode_step(tp, toks[:, n:], cache)
-        counts.append({k: v - counts[-1][k] for k, v in calls.items()})
+        counts.append(kops.launch_counts())
         return pre, dec
 
-    calls = {"rmsnorm": 0, "flash_attention": 0, "decode_attention": 0, "mla_decode": 0, "moe_slots": 0}
     counts = []
     with torch.no_grad():
         plain = run()
-        assert all(c == {k: 0 for k in calls} for c in counts)  # the plain path calls no wrapper
-
-        def counting(name, fn):
-            def call(*a, **k):
-                calls[name] += 1
-                return fn(*a, **k)
-            return call
-
-        monkeypatch.setattr(tl, "_use_kernel", lambda x: True)
-        monkeypatch.setattr(tmoe, "_use_kernel", lambda x: True)
-        monkeypatch.setattr(krmsnorm, "rmsnorm", counting("rmsnorm", krmsnorm.rmsnorm))
-        monkeypatch.setattr(kslots, "moe_slots", counting("moe_slots", kslots.moe_slots))
-        monkeypatch.setattr(kflash, "flash_attention", counting("flash_attention", kflash.flash_attention))
-        monkeypatch.setattr(kdecode, "decode_attention", counting("decode_attention", kdecode.decode_attention))
+        assert counts == [{}, {}]  # the plain path calls no wrapper
+        monkeypatch.setattr(kops, "use_kernel", lambda x: True)
         counts.clear()
         kern = run()
     assert tuple(counts) == serve_launches(cfg), (counts, serve_launches(cfg))

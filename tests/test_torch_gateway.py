@@ -953,16 +953,16 @@ def test_both_gateways_answer_the_same_requests_alike():
 
 def test_phase_18_rehearsed_on_the_cpu(monkeypatch):
     """``chip_smoke.phase_gateway`` on the CPU at a small shape, its one
-    multiprocess request forked (so that the workers inherit the counting
-    rmsnorm), the plain rmsnorm counting a launch through its module's
-    counter.  The phase's own checks run: every answer over HTTP equal to
+    multiprocess request forked (so that the workers inherit the forced
+    switch), the switch forced to the kernel path, so that the plain
+    rmsnorm counts as the card's launch.  The phase's own checks run: every answer over HTTP equal to
     the same request in process, 2 launches a request, 429 with
     ``Retry-After`` for a tenant over its quota, ``/v1/healthz`` and
     ``/v1/metrics``, and the multiprocess service's same number."""
     import importlib.util
     from pathlib import Path
 
-    from repro_torch.kernels import rmsnorm as krmsnorm
+    from repro_torch.kernels import ops as kops
 
     path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
     spec = importlib.util.spec_from_file_location("chip_smoke_for_gateway_tests", path)
@@ -970,17 +970,9 @@ def test_phase_18_rehearsed_on_the_cpu(monkeypatch):
     spec.loader.exec_module(cs)
     monkeypatch.setattr(cs, "GW_SHAPE", (4, 32))
     monkeypatch.setattr(cs, "GW_REQUESTS", 40)
-    real = krmsnorm.rmsnorm
-
-    def counted(*a, **k):
-        out = real(*a, **k)
-        krmsnorm._count_launch()
-        return out
-
-    monkeypatch.setattr(krmsnorm, "rmsnorm", counted)
+    monkeypatch.setattr(kops, "use_kernel", lambda x: True)
     out = cs.phase_gateway(torch, "cpu rehearsal", "H100 SXM", device="cpu", start_method="fork")
-    assert out["launches"] == {"rmsnorm": 2 * 40, "flash_attention": 0, "decode_attention": 0, "mla_decode": 0,
-                               "moe_slots": 0}
+    assert out["launches"] == {"rmsnorm": 2 * 40}
     assert out["over_quota"]["status"] == 429 and out["over_quota"]["retry_after"] >= 1
     assert out["counters"]["rejected"] == 1 and out["counters"]["instances_failed"] == 0
     assert out["requests_per_s"] > 0 and out["p50_ms"] <= out["p99_ms"]

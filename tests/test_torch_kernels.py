@@ -276,11 +276,25 @@ def test_rmsnorm_plan_limits():
             plan(d, torch.bfloat16)
 
 
-def test_launch_counts_untouched_by_plain_versions():
+def test_launch_counts_untouched_by_plain_versions(monkeypatch):
+    """Under the plain switch the model's layers, and a wrapper's plain
+    version on a CPU tensor, count nothing; forced to the kernel path, the
+    same layer counts its call."""
+    x, w, q = torch.ones(2, 64), torch.zeros(64), torch.ones(1, 4, 2, 16)
+    prev = tlayers.get_attn_impl()
+    tlayers.set_attn_impl("plain")
+    try:
+        ops.reset_launch_counts()
+        tlayers.rms_norm(x, w)
+        tlayers.sdpa(q, q, q, causal=True)
+        rmsnorm(x, w)
+        assert ops.launch_counts() == {}
+    finally:
+        tlayers.set_attn_impl(prev)
+    monkeypatch.setattr(ops, "use_kernel", lambda t: True)
+    tlayers.rms_norm(x, w)
+    assert ops.launch_counts() == {"rmsnorm": 1}
     ops.reset_launch_counts()
-    rmsnorm(torch.ones(2, 64), torch.zeros(64))
-    assert ops.launch_counts() == {"rmsnorm": 0, "flash_attention": 0, "decode_attention": 0, "mla_decode": 0,
-                                   "moe_slots": 0}
 
 
 def test_kernel_switch_on_cpu_tensor_raises():

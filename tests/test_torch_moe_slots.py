@@ -125,7 +125,7 @@ def test_a_cpu_tensor_takes_the_plain_version_and_counts_no_launch():
     want = kref.moe_slots_ref(experts, 64, 32)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     assert not got[1].all()  # 1800 choices over 64 experts of 32 slots: some drop
-    assert "moe_slots" in kops.launch_counts() and kops.launch_counts()["moe_slots"] == 0
+    assert kops.launch_counts() == {}
 
 
 @pytest.mark.parametrize("case", ["int32 ids", "3-D ids", "no experts", "257 experts"])
@@ -146,24 +146,17 @@ def test_the_wrapper_refuses_what_the_kernel_does_not_take(case):
 
 def test_the_moe_calls_the_slot_wrapper_once_a_call_on_the_kernel_path(monkeypatch):
     """With the switch forced to the kernel path, ``apply_moe`` takes its slots
-    from ``ops.moe_slots`` (the plain version on CPU tensors), once a call,
-    and gives the plain path's output."""
-    calls = []
-    real = kops.moe_slots
-
-    def counted(*a, **k):
-        calls.append(a[0].shape)
-        return real(*a, **k)
-
+    from ``ops.moe_slots`` (the plain version on CPU tensors, counted as the
+    card's call), once a call, and gives the plain path's output."""
     cfg = dataclasses.replace(get_config("granite-moe-1b-a400m", smoke=True), dtype="float32")
     p = tmoe.init_moe(torch.Generator().manual_seed(0), cfg, torch.float32)
     x = torch.randn(2, 9, cfg.d_model, generator=torch.Generator().manual_seed(1))
+    kops.reset_launch_counts()
     plain = tmoe.apply_moe(cfg, p, x)
-    assert calls == []
-    monkeypatch.setattr(tmoe, "_use_kernel", lambda t: True)
-    monkeypatch.setattr(tmoe.kops, "moe_slots", counted)
+    assert kops.launch_counts() == {}
+    monkeypatch.setattr(kops, "use_kernel", lambda t: True)
     kern = tmoe.apply_moe(cfg, p, x)
-    assert calls == [torch.Size([18, cfg.moe.top_k])]
+    assert kops.launch_counts() == {"moe_slots": 1}
     assert torch.equal(kern[0], plain[0]) and torch.equal(kern[1], plain[1])
 
 
@@ -173,10 +166,10 @@ def test_chip_smoke_counts_one_slot_call_a_moe_layer_and_forward(arch, n_moe):
     cs = _chip_smoke()
     cfg = dataclasses.replace(get_config(arch), remat=True)
     prefill, step = cs.serve_launches(cfg)
-    assert prefill["moe_slots"] == step["moe_slots"] == n_moe
-    assert cs.train_launches(cfg, 2)["moe_slots"] == 2 * 2 * n_moe  # each pod's forward and remat's
-    assert cs.dist_launches(cfg, hinted=False)["moe_slots"] == 2 * n_moe
-    assert cs.dist_launches(cfg, hinted=True)["moe_slots"] == 0  # H2's own cumsum
+    assert prefill.get("moe_slots", 0) == step.get("moe_slots", 0) == n_moe
+    assert cs.train_launches(cfg, 2).get("moe_slots", 0) == 2 * 2 * n_moe  # each pod's forward and remat's
+    assert cs.dist_launches(cfg, hinted=False).get("moe_slots", 0) == 2 * n_moe
+    assert "moe_slots" not in cs.dist_launches(cfg, hinted=True)  # H2's own cumsum
 
 
 # -- on the card -----------------------------------------------------------------------------
@@ -201,7 +194,7 @@ def test_the_kernel_equals_the_plain_version_bit_for_bit(card, collapsed):
         ids = card.slot_ids(torch, t, k, e, 1000 + i, "cuda", collapsed=collapsed)
         kops.reset_launch_counts()
         got = kops.moe_slots(ids, e, cap)
-        assert kops.launch_counts()["moe_slots"] == 1, name
+        assert kops.launch_counts() == {"moe_slots": 1}, name
         assert _equal(got, kref.moe_slots_ref(ids, e, cap)), name
 
 

@@ -311,38 +311,29 @@ def test_spawned_workers_run_module_level_steps_on_tensors():
     reports = cs.worker_reports(exe.checkpoint().payloads)
     assert sorted(reports) == sorted(f"s{k}" for k in range(1, cs.DP_STEPS + 1))
     assert {r["pid"] for r in reports.values()} == set(res.stats["pids"].values())
-    assert all(set(r["launches"].values()) == {0} for r in reports.values())
+    assert all(r["launches"] == {} for r in reports.values())
     _assert_no_workers_left(exe.program)
 
 
 def test_phase_17_rehearsed_on_the_cpu(monkeypatch):
     """``chip_smoke.phase_multiprocess`` on the CPU at small shapes, forked
-    (so that the workers inherit a plain rmsnorm that counts a launch
-    through its module's counter), the card's synchronise a no-op.  The
+    (so that the workers inherit the switch forced to the kernel path, under
+    which the plain rmsnorm counts as the card's launch), the card's
+    synchronise a no-op.  The
     phase's own checks run: stores equal to ``threaded``'s, rmsnorm steps
     against the plain version, exactly 3 launches inside the workers of a
     P-split run, distinct worker PIDs and none left, a killed worker named
     by location and step, and the spare recovery's store."""
-    from repro_torch.kernels import rmsnorm as krmsnorm
-
     cs = _chip_smoke()
     monkeypatch.setattr(cs, "DP_SHAPES", {"P-ref": (8, 16), "P-full": (32, 64)})
     monkeypatch.setattr(cs, "G_ELEMS", 64)
     monkeypatch.setattr(cs, "DP_REPEATS", 2)
     monkeypatch.setattr(cs, "MP_RUNS", 2)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
-    real = krmsnorm.rmsnorm
-
-    def counted(*a, **k):
-        out = real(*a, **k)
-        krmsnorm._count_launch()
-        return out
-
-    monkeypatch.setattr(krmsnorm, "rmsnorm", counted)
+    monkeypatch.setattr(kops, "use_kernel", lambda x: True)
     out = cs.phase_multiprocess(torch, "cpu rehearsal", "H100 SXM", device="cpu", start_method="fork")
-    three = {"rmsnorm": cs.DP_NORMS, "flash_attention": 0, "decode_attention": 0}
-    assert out["launches"] == {"P-ref/split": three, "P-full/split": three,
-                               "G": {"rmsnorm": 0, "flash_attention": 0, "decode_attention": 0}}
+    three = {"rmsnorm": cs.DP_NORMS}
+    assert out["launches"] == {"P-ref/split": three, "P-full/split": three, "G": {}}
     assert out["P-ref/split"]["workers"] == 2 and out["G"]["workers"] == 9
     assert out["P-full/split"]["wire"]["messages"] == cs.DP_STEPS - 1
     assert out["P-full/split"]["wire"]["bytes"] > (cs.DP_STEPS - 1) * 32 * 64 * 4

@@ -48,7 +48,7 @@ from repro_torch.backends.base import DEFAULT_MAX_CONCURRENT
 from repro_torch.core import build_bundles, compile_bundles, emit_all, emit_python_source
 from repro_torch.core.translate import genomes_1000 as t_genomes
 from repro_torch.exec import FaultPolicy, RunDeadlineExceeded, emit_location_source, emit_program_sources
-from repro_torch.kernels import rmsnorm as krmsnorm
+from repro_torch.kernels import ops as kops
 from repro_torch.kernels.ops import rmsnorm as kops_rmsnorm
 from repro_torch.workflow import ChannelRegistry, FlakyFn, Runtime, SlowFn, ThreadedRuntime
 from repro_torch.workflow import threaded as tthreaded
@@ -263,18 +263,11 @@ def test_two_batches_at_once_do_not_collide():
 def test_launch_counts_stay_exact_under_many_lanes(monkeypatch):
     """Stress: ``run_many`` over 16 lanes × 3 location threads (more threads
     than cores) with a shortened switch interval, each rmsnorm call counted
-    through its module's locked counter: no count is lost and every store
-    equals a single run's."""
+    through the locked counter (the switch forced to the kernel path): no
+    count is lost and every store equals a single run's."""
     import sys
 
-    real = krmsnorm.rmsnorm
-
-    def counted(*a, **k):
-        out = real(*a, **k)
-        krmsnorm._count_launch()
-        return out
-
-    monkeypatch.setattr(krmsnorm, "rmsnorm", counted)
+    monkeypatch.setattr(kops, "use_kernel", lambda x: True)
     jinst, _, _ = _serve_workload(1)
     w = torch.ones(8)
     fns = {
@@ -288,9 +281,9 @@ def test_launch_counts_stay_exact_under_many_lanes(monkeypatch):
     interval = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
-        before = krmsnorm.launches
+        kops.reset_launch_counts()
         many = exe.run_many(inputs, max_concurrent=16)
-        assert krmsnorm.launches - before == 2 * len(inputs)
+        assert kops.launch_counts() == {"rmsnorm": 2 * len(inputs)}
     finally:
         sys.setswitchinterval(interval)
     for res, payloads in zip(many, inputs):
@@ -479,8 +472,9 @@ def test_a_returned_tensor_is_the_very_object_in_every_store():
 
 
 def test_phase_16_rehearsed_on_the_cpu(monkeypatch):
-    """``chip_smoke.phase_threaded`` on the CPU at small shapes, the plain
-    rmsnorm counting a launch through its module's counter, the card's
+    """``chip_smoke.phase_threaded`` on the CPU at small shapes, the switch
+    forced to the kernel path (the plain rmsnorm counts as the card's
+    launch), the card's
     synchronise a no-op and its profiler stubbed (no device time here, so
     the exec-span cover check reads 0).  The phase's own checks run: stores
     against the ``torch`` backend, rmsnorm steps against the plain version,
@@ -495,19 +489,11 @@ def test_phase_16_rehearsed_on_the_cpu(monkeypatch):
     monkeypatch.setattr(cs, "DP_REPEATS", 2)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
     monkeypatch.setattr(cs, "device_ms_and_copies", lambda torch_, fn: (fn(), (0.0, 0, 0))[1])
-    real = krmsnorm.rmsnorm
-
-    def counted(*a, **k):
-        out = real(*a, **k)
-        krmsnorm._count_launch()
-        return out
-
-    monkeypatch.setattr(krmsnorm, "rmsnorm", counted)
+    monkeypatch.setattr(kops, "use_kernel", lambda x: True)
     out = cs.phase_threaded(torch, "cpu rehearsal", "H100 SXM", device="cpu")
-    three = {"rmsnorm": cs.DP_NORMS, "flash_attention": 0, "decode_attention": 0, "mla_decode": 0, "moe_slots": 0}
+    three = {"rmsnorm": cs.DP_NORMS}
     assert out["launches"] == {"P-ref": three, "P-ref/split": three, "P-full": three, "P-full/split": three,
-                               "S-serve run_many": {"rmsnorm": 200, "flash_attention": 0, "decode_attention": 0,
-                                                    "mla_decode": 0, "moe_slots": 0}}
+                               "S-serve run_many": {"rmsnorm": 200}}
     assert out["P-full/split"]["sends"] == cs.DP_STEPS - 1
     assert out["G"]["locations"] == 9 and out["G"]["resends"] >= 1
     assert out["S-serve"]["instances"] == 100

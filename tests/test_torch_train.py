@@ -48,10 +48,8 @@ from repro.models import SSMCfg as JSSM
 from repro_torch import _bridge
 from repro_torch.ckpt import latest_step
 from repro_torch.configs import get_config as tget
-from repro_torch.kernels import flash_attention as kflash
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
-from repro_torch.kernels import rmsnorm as krmsnorm
 from repro_torch.launch.steps import make_grad_step, make_train_step
 from repro_torch.launch.train import Trainer
 from repro_torch.launch.train import main as tmain
@@ -60,7 +58,6 @@ from repro_torch.models import Model as TModel
 from repro_torch.models import ModelConfig as TConfig
 from repro_torch.models import MoECfg as TMoE
 from repro_torch.models import SSMCfg as TSSM
-from repro_torch.models import layers as tlayers
 from repro_torch.models import params_from_jax, params_to_jax
 from repro_torch.optim import AdamWConfig
 from repro_torch.workflow.fault import RetryPolicy
@@ -556,28 +553,20 @@ def test_rmsnorm_plain_vjp_matches_jax_vjp():
 
 def test_kernel_path_under_remat_counts_its_launches_and_matches_the_plain_path(monkeypatch):
     """The card's training path, rehearsed on the CPU: layers take the kernel
-    wrappers (which return their plain versions for CPU tensors), under the
-    Function and remat.  Each fwdbwd calls rmsnorm 2L + 1 times forward and
-    2L in the recompute, flash L and L, decode never."""
+    wrappers (which return their plain versions for CPU tensors, counted as
+    the card's launches), under the Function and remat.  Each fwdbwd calls
+    rmsnorm 2L + 1 times forward and 2L in the recompute, flash L and L,
+    decode never."""
     kw = {**VARIANTS["gqa"], "remat": True}
     _, _, tm, tp = setup(kw)
     batch = to_t(batch_np(6, 2, 10, 512))
     plain_g, plain_m = make_grad_step(tm)(tp, batch)
 
-    calls = {"rmsnorm": 0, "flash_attention": 0}
-
-    def counting(name, fn):
-        def call(*a, **k):
-            calls[name] += 1
-            return fn(*a, **k)
-        return call
-
-    monkeypatch.setattr(tlayers, "_use_kernel", lambda x: True)
-    monkeypatch.setattr(krmsnorm, "rmsnorm", counting("rmsnorm", krmsnorm.rmsnorm))
-    monkeypatch.setattr(kflash, "flash_attention", counting("flash_attention", kflash.flash_attention))
+    monkeypatch.setattr(kops, "use_kernel", lambda x: True)
+    kops.reset_launch_counts()
     kern_g, kern_m = make_grad_step(tm)(tp, batch)
     n = tm.cfg.n_layers
-    assert calls == {"rmsnorm": (2 * n + 1) + 2 * n, "flash_attention": 2 * n}
+    assert kops.launch_counts() == {"rmsnorm": (2 * n + 1) + 2 * n, "flash_attention": 2 * n}
     np.testing.assert_allclose(float(kern_m["loss"]), float(plain_m["loss"]), rtol=TOL["float32"])
     for name, a in _bridge.tree_flatten_with_path(kern_g):
         assert float(a.abs().max()) > 0.0, name  # every leaf has a gradient
@@ -586,25 +575,19 @@ def test_kernel_path_under_remat_counts_its_launches_and_matches_the_plain_path(
 
 
 def test_moe_kernel_path_under_remat_counts_its_launches_and_matches_the_plain_path(monkeypatch):
-    """The same rehearsal on granite-moe's smoke config: the MoE FFN launches
-    no kernel, so the counts are the dense ones, 2L + 1 + 2L and 2L."""
+    """The same rehearsal on granite-moe's smoke config: the dense counts,
+    2L + 1 + 2L and 2L, and the MoE slot kernel once a MoE FFN, forward and
+    recompute."""
     _, _, tm, tp = moe_setup("granite-remat")
     batch = to_t(batch_np(8, 2, 10, tm.cfg.vocab))
     plain_g, plain_m = make_grad_step(tm)(tp, batch)
-    calls = {"rmsnorm": 0, "flash_attention": 0}
-
-    def counting(name, fn):
-        def call(*a, **k):
-            calls[name] += 1
-            return fn(*a, **k)
-        return call
-
-    monkeypatch.setattr(tlayers, "_use_kernel", lambda x: True)
-    monkeypatch.setattr(krmsnorm, "rmsnorm", counting("rmsnorm", krmsnorm.rmsnorm))
-    monkeypatch.setattr(kflash, "flash_attention", counting("flash_attention", kflash.flash_attention))
+    monkeypatch.setattr(kops, "use_kernel", lambda x: True)
+    kops.reset_launch_counts()
     kern_g, kern_m = make_grad_step(tm)(tp, batch)
     n = tm.cfg.n_layers
-    assert calls == {"rmsnorm": (2 * n + 1) + 2 * n, "flash_attention": 2 * n}
+    n_moe = sum(f == "moe" for _, f in tm.cfg.layer_seq())
+    assert n_moe > 0
+    assert kops.launch_counts() == {"rmsnorm": (2 * n + 1) + 2 * n, "flash_attention": 2 * n, "moe_slots": 2 * n_moe}
     for k in ("loss", "aux"):
         np.testing.assert_allclose(float(kern_m[k]), float(plain_m[k]), rtol=TOL["float32"])
     for name, a in _bridge.tree_flatten_with_path(kern_g):
@@ -613,31 +596,13 @@ def test_moe_kernel_path_under_remat_counts_its_launches_and_matches_the_plain_p
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5, rtol=1e-4)
 
 
-def _counting_kernels(monkeypatch):
-    """The kernel path on the CPU, with a count of each wrapper's calls."""
-    from repro_torch.kernels import decode_attention as kdecode
-
-    calls = {"rmsnorm": 0, "flash_attention": 0, "decode_attention": 0}
-
-    def counting(name, fn):
-        def call(*a, **k):
-            calls[name] += 1
-            return fn(*a, **k)
-        return call
-
-    monkeypatch.setattr(tlayers, "_use_kernel", lambda x: True)
-    monkeypatch.setattr(krmsnorm, "rmsnorm", counting("rmsnorm", krmsnorm.rmsnorm))
-    monkeypatch.setattr(kflash, "flash_attention", counting("flash_attention", kflash.flash_attention))
-    monkeypatch.setattr(kdecode, "decode_attention", counting("decode_attention", kdecode.decode_attention))
-    return calls
-
-
 def test_jamba_kernel_path_counts_its_launches_and_matches_the_plain_path(monkeypatch):
     """Jamba's smoke config (one 8-layer period: 7 mamba, 1 attention, 4 MoE
     and 4 MLP FFNs) on the kernel path, rehearsed on the CPU: a forward, a
     prefill and a decode step each call rmsnorm 8 + 8 + 1 = 17 times; flash
-    once in a forward or prefill, decode once a step; the mixers call none.
-    A remat fwdbwd adds the recompute's 16 norms and 1 flash."""
+    once in a forward or prefill, decode once a step; the MoE slot kernel
+    once a MoE FFN; the mixers call none.  A remat fwdbwd adds the
+    recompute's 16 norms, 1 flash and 4 slot calls."""
     jm, jp, tm, tp = rec_setup("jamba-smoke", True)
     toks = torch.from_numpy(batch_np(11, 2, 10, 512)["tokens"])
     batch = to_t(batch_np(11, 2, 10, 512))
@@ -647,25 +612,24 @@ def test_jamba_kernel_path_counts_its_launches_and_matches_the_plain_path(monkey
     plain_pre, cache = tm.prefill(tp, toks[:, :9], cache)
     plain_dec, _ = tm.decode_step(tp, toks[:, 9:], cache)
 
-    calls = _counting_kernels(monkeypatch)
+    monkeypatch.setattr(kops, "use_kernel", lambda x: True)
 
     def counted(fn, *args):
-        for k in calls:
-            calls[k] = 0
+        kops.reset_launch_counts()
         out = fn(*args)
-        return out, dict(calls)
+        return out, kops.launch_counts()
 
     with torch.no_grad():
         logits, n_fwd = counted(tm.forward, tp, toks)
         (pre, cache), n_pre = counted(tm.prefill, tp, toks[:, :9], tm.init_cache(2, 12))
         (dec, _), n_dec = counted(tm.decode_step, tp, toks[:, 9:], cache)
-    assert n_fwd == {"rmsnorm": 17, "flash_attention": 1, "decode_attention": 0}
-    assert n_pre == {"rmsnorm": 17, "flash_attention": 1, "decode_attention": 0}
-    assert n_dec == {"rmsnorm": 17, "flash_attention": 0, "decode_attention": 1}
+    assert n_fwd == {"rmsnorm": 17, "flash_attention": 1, "moe_slots": 4}
+    assert n_pre == {"rmsnorm": 17, "flash_attention": 1, "moe_slots": 4}
+    assert n_dec == {"rmsnorm": 17, "decode_attention": 1, "moe_slots": 4}
     for got, want in ((logits, plain_logits), (pre, plain_pre), (dec, plain_dec)):
         np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5, rtol=1e-4)
     (kern_g, kern_m), n_bwd = counted(make_grad_step(tm), tp, batch)
-    assert n_bwd == {"rmsnorm": 17 + 16, "flash_attention": 2, "decode_attention": 0}
+    assert n_bwd == {"rmsnorm": 17 + 16, "flash_attention": 2, "moe_slots": 4 + 4}
     np.testing.assert_allclose(float(kern_m["loss"]), float(plain_m["loss"]), rtol=TOL["float32"])
     for a, b in zip(_bridge.tree_leaves(kern_g), _bridge.tree_leaves(plain_g)):
         np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-5, rtol=1e-4)
@@ -675,14 +639,12 @@ def test_jamba_kernel_path_counts_its_launches_and_matches_the_plain_path(monkey
 def test_trainer_on_the_kernel_path_launches_as_phase_13_expects(arch, pods, monkeypatch):
     """Phase 13 of ``chip_smoke.py`` rehearsed on the CPU: the arch's smoke
     config in bf16 with remat (gemma2 at 24 tokens, past its window of 16)
-    through ``Trainer`` on the kernel path, whose wrappers take their plain
-    versions on the CPU and are patched to count each call through the kernel
-    module's own launch counter.  At 2 pods both ``fwdbwd`` steps must be in
-    flight at once (a barrier that both must reach).  From counts of 0, one
+    through ``Trainer`` with the switch forced to the kernel path, whose
+    wrappers take their plain versions on the CPU and count each call as the
+    card's launch.  At 2 pods both ``fwdbwd`` steps must be in flight at
+    once (a barrier that both must reach).  From counts of 0, one
     iteration's ``ops.launch_counts()`` must equal ``chip_smoke.train_launches``
     exactly; every leaf changes and keeps its dtype, the fp32 ones included."""
-    from repro_torch.kernels import decode_attention as kdecode
-
     cs = _chip_smoke()
     cfg = dataclasses.replace(tget(arch, smoke=True), dtype="bfloat16", remat=True)
     tr = Trainer(cfg, steps=2, n_pods=pods, global_batch=4, seq_len=24, ckpt_dir=None, device="cpu")
@@ -698,17 +660,8 @@ def test_trainer_on_the_kernel_path_launches_as_phase_13_expects(arch, pods, mon
             fns[f"fwdbwd_{i}"] = fwdbwd
         return fns
 
-    def counted(mod, fn):
-        def call(*a, **k):
-            out = fn(*a, **k)
-            mod._count_launch()
-            return out
-        return call
-
     monkeypatch.setattr(tr, "step_fns", concurrent_fns)
-    monkeypatch.setattr(tlayers, "_use_kernel", lambda x: True)
-    for mod, name in ((krmsnorm, "rmsnorm"), (kflash, "flash_attention"), (kdecode, "decode_attention")):
-        monkeypatch.setattr(mod, name, counted(mod, getattr(mod, name)))
+    monkeypatch.setattr(kops, "use_kernel", lambda x: True)
     p0 = tr.params
     kops.reset_launch_counts()
     m = tr.iteration(0)
@@ -753,31 +706,27 @@ def test_mixer_backward_check_of_phase_13_runs_and_sees_a_planted_fault():
 
 
 def test_launch_counters_add_under_their_locks():
-    """Each kernel module adds a launch under its lock, so that two pods'
-    threads cannot lose a count between the read and the write of a bare
-    ``launches += 1``: while the lock is held, a thread's ``_count_launch``
-    waits and adds nothing; released, it adds its one.  And 4 threads adding
-    20,000 each, switching every microsecond, add 80,000."""
-    from repro_torch.kernels import decode_attention as kdecode
-    from repro_torch.kernels import mla_decode as kmla
-    from repro_torch.kernels import moe_slots as kslots
+    """One lock guards every kernel's count, so that two pods' threads cannot
+    lose a count between the read and the write of a bare ``+= 1``: while
+    the lock is held, a thread's add waits and adds nothing; released, it
+    adds its one.  And 4 threads adding 20,000 to every kernel's count,
+    switching every microsecond, add 80,000 to each."""
+    from repro_torch.kernels import _build
 
-    mods = {"rmsnorm": krmsnorm, "flash_attention": kflash, "decode_attention": kdecode, "mla_decode": kmla,
-            "moe_slots": kslots}
-    for name, mod in mods.items():
+    for name in _build.KERNELS:
         kops.reset_launch_counts()
-        with mod._launch_lock:
-            t = threading.Thread(target=mod._count_launch)
+        with _build.launch_lock:
+            t = threading.Thread(target=kops.add_launch_counts, args=({name: 1},))
             t.start()
             t.join(0.2)
-            assert t.is_alive() and kops.launch_counts()[name] == 0, name
+            assert t.is_alive() and _build.launches[name] == 0, name
         t.join(10)
-        assert not t.is_alive() and kops.launch_counts() == {k: int(k == name) for k in mods}, name
+        assert not t.is_alive() and kops.launch_counts() == {name: 1}, name
 
     def add():
         for _ in range(20_000):
-            for mod in mods.values():
-                mod._count_launch()
+            for name in _build.KERNELS:
+                _build.count(name)
 
     old = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
@@ -790,9 +739,9 @@ def test_launch_counters_add_under_their_locks():
             t.join()
     finally:
         sys.setswitchinterval(old)
-    assert kops.launch_counts() == {k: 80_000 for k in mods}
+    assert kops.launch_counts() == dict.fromkeys(_build.KERNELS, 80_000)
     kops.reset_launch_counts()
-    assert kops.launch_counts() == {k: 0 for k in mods}
+    assert kops.launch_counts() == {}
 
 
 def test_moe_trainer_keeps_the_fp32_router_in_a_bf16_model():
